@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``horovod_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--n-layers N] [--seed S]
+    python3 chip_smoke.py [--n-layers N] [--train-layers N] [--seed S]
 
 Phases, one JSON line each; any failure exits non-zero before the result:
 
@@ -13,24 +13,42 @@ Phases, one JSON line each; any failure exits non-zero before the result:
    ``build/horovod_tpu_torch/``.
 3. ``kernel flash_fwd``: the hand-written flash-attention forward against
    its plain PyTorch version on the same inputs, at Llama-3-8B attention
-   shapes, plus the kernel's, the plain version's and PyTorch's
+   shapes (generate's prefill and the training shape among them), plus the
+   kernel's, the plain version's and PyTorch's
    ``scaled_dot_product_attention`` time (that call is only a yardstick:
    the port never makes it).
-4. ``serve generate``: Llama-3-8B at full width (random weights from the
+4. ``kernel flash_bwd``: the dQ and dK/dV kernels against their plain
+   versions on the same inputs (O and LSE from the forward kernel, a random
+   dO), five cases; at the training shape their times, bounds and SDPA's
+   backward as the yardstick.
+5. ``serve generate``: Llama-3-8B at full width (random weights from the
    seed), greedy ``generate`` over four ragged prompts; the flash kernel
    must launch once per layer of the prefill, and the prefill's logits
    must agree with ``attn_impl="dense"``.
-5. ``serve batcher``: a 512-token shared prefix (``precompute_prefix``,
+6. ``serve batcher``: a 512-token shared prefix (``precompute_prefix``,
    through the kernel) and a ``ContinuousBatcher`` answering eight
    requests; first tokens are held against solo ``generate``.
+7. ``train``: Llama-3-8B width cut to ``--train-layers`` (default 8), remat,
+   flash attention, f32 master weights and bf16 compute, through the port's
+   ``basics.init`` (NCCL, a world of one), ``broadcast_parameters``,
+   ``DistributedOptimizer(AdamW)`` with clipping at 1.0 after the
+   gradient allreduce, and ``make_train_step``: four timed steps on one
+   repeated batch of 4096 tokens, then a fifth under ``torch.profiler``
+   (device time by kind of kernel, the device's idle share).  Each step
+   must launch the forward kernel twice per layer (forward and remat
+   recompute) and each backward kernel once; the loss must fall; step 0's
+   gradients must agree with the blockwise recompute and the fused loss
+   with the plain one.
 
 Then a ``{"kernels": [...]}`` line and, last, the result line
-``{"ok": true, "device": {...}}``.  ``--n-layers`` cuts depth, never width.
+``{"ok": true, "device": {...}}``.  ``--n-layers`` and ``--train-layers``
+cut depth, never width.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -63,6 +81,29 @@ LOGIT_RTOL = 5e-2
 # margin exceeds this share of the largest |logit| (bf16 ties are not
 # claimed across batch shapes).
 MARGIN_RTOL = 5e-2
+
+
+# Llama-3-8B attention heads (H, KVH, D) of every kernel case.
+ATTN_HEADS = (32, 8, 128)
+# The training shape: those heads over one causal sequence of 4096 tokens,
+# bf16.
+TRAIN_SHAPE = ("causal_b1_l4096", 1, 4096, True)
+TRAIN_TOKENS = 4096
+
+# Train phase, step 0's gradients with the backward kernels against the
+# blockwise recompute (bwd="blockwise") on the same weights and batch.  The
+# forward is the same kernel in both; the backward differs by the kernels'
+# bf16 roundings of P and dS (unbiased, 2**-8 relative per element, summed
+# over 4096 keys or queries), which then flow through the earlier layers'
+# backward: held as relative Frobenius distances.
+GRAD_NORM_RTOL = 2e-2       # |‖g_kernel‖ − ‖g_blockwise‖| / ‖g_blockwise‖
+GRAD_LEAF_RTOL = 5e-2       # ‖g_kernel − g_blockwise‖ / ‖g_blockwise‖, per leaf
+# The fused loss (f32 logits, chunks of 8192 columns) against the plain loss
+# (logits rounded to bf16 by the lm_head product): each logit differs by at
+# most one bf16 rounding (2**-9 relative), unbiased, averaged over 4096
+# tokens.  Relative to the loss.
+FUSED_LOSS_RTOL = 1e-3
+PEAK_BF16 = PEAK_FLOPS["bf16"]
 
 
 class PhaseError(RuntimeError):
@@ -151,11 +192,12 @@ def phase_kernel(seed: int) -> dict:
 
     from horovod_tpu_torch.parallel import flash_attention as fa
 
-    H, KVH, D = 32, 8, 128
+    H, KVH, D = ATTN_HEADS
     names = {torch.bfloat16: "bf16", torch.float16: "f16",
              torch.float32: "f32"}
     cases = [  # (name, B, L, causal, dtype); the first is generate's prefill
         ("causal_b4_l1024", 4, 1024, True, torch.bfloat16),
+        (*TRAIN_SHAPE, torch.bfloat16),   # the train phase's forward and remat
         ("causal_b1_l512", 1, 512, True, torch.bfloat16),
         ("causal_b1_l1000", 1, 1000, True, torch.bfloat16),
         ("noncausal_b1_l512", 1, 512, False, torch.bfloat16),
@@ -209,6 +251,132 @@ def phase_kernel(seed: int) -> dict:
         if not ok:
             raise PhaseError(f"flash_fwd disagrees with its reference on {name}")
     return {"cases": results}
+
+
+# Tolerances of the backward kernels against their plain versions, relative
+# to the largest |grad| of each tensor.  Both round P and dS to the storage
+# dtype (three roundings: dS before dS·K, P before Pᵀ·dO, dS before dSᵀ·Q)
+# from f32 values that differ only in summation order (64-wide tiles on the
+# tensor cores against 512-wide cuBLAS blocks), and both round dQ and the
+# per-head dK/dV to the storage dtype once: so a gradient may differ by a
+# few units in the last place of the storage dtype relative to the largest
+# |grad|, the three roundings compounding over L keys or queries.
+BWD_RTOL = {"bf16": 2 ** -6, "f16": 2 ** -8, "f32": 1e-4}
+
+
+def _bwd_bound(b, h, kvh, l, d, causal, elem, tname, products, outputs):
+    """Least time for one backward kernel: ``products`` matrix products
+    over the (causal) score matrix, against reading q, dO, k, v, LSE and Δ
+    once and writing ``outputs`` [B·H, L, D] tensors once."""
+    pairs = l * (l + 1) // 2 if causal else l * l
+    flops = products * 2 * b * h * d * pairs
+    nbytes = ((2 + outputs) * b * h + 2 * b * kvh) * l * d * elem \
+        + 2 * b * h * l * 4
+    t_ops = flops / PEAK_FLOPS[tname]
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_kernel_bwd(seed: int) -> dict:
+    import torch
+
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    H, KVH, D = ATTN_HEADS
+    names = {torch.bfloat16: "bf16", torch.float16: "f16",
+             torch.float32: "f32"}
+    cases = [  # (name, B, L, causal, dtype); the first is the training shape
+        (*TRAIN_SHAPE, torch.bfloat16),
+        ("causal_b1_l1000", 1, 1000, True, torch.bfloat16),
+        ("noncausal_b1_l512", 1, 512, False, torch.bfloat16),
+        ("causal_b1_l333_f16", 1, 333, True, torch.float16),
+        ("causal_b1_l200_f32", 1, 200, True, torch.float32),
+    ]
+    gen = torch.Generator(device=DEV).manual_seed(seed + 2)
+    results = []
+    for name, b, l, causal, dtype in cases:
+        tname = names[dtype]
+        q = torch.randn((b * H, l, D), generator=gen, device=DEV).to(dtype)
+        k = torch.randn((b * KVH, l, D), generator=gen, device=DEV).to(dtype)
+        v = torch.randn((b * KVH, l, D), generator=gen, device=DEV).to(dtype)
+        do = torch.randn((b * H, l, D), generator=gen, device=DEV).to(dtype)
+        o, lse = fa._flash_forward_cuda(q, k, v, n_heads=H, n_kv_heads=KVH,
+                                        causal=causal)
+        lse = lse.view(b * H, l)
+        delta = fa._delta(o, do)
+        kw = dict(n_heads=H, n_kv_heads=KVH, causal=causal)
+        blk = dict(block_q=min(512, l), block_k=min(512, l))
+        dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+        dk_h, dv_h = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+        sync()
+        dq_ref = fa._flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw,
+                                            **blk)
+        dk_ref, dv_ref = fa._flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                     **kw, **blk)
+        rtol = BWD_RTOL[tname]
+        row = {"case": name, "dtype": tname, "B": b, "L": l, "H": H,
+               "KVH": KVH, "D": D, "causal": causal,
+               "tol": f"{rtol} * max|grad|", "ok": True}
+        for gname, got, ref in (("dq", dq, dq_ref), ("dk", dk_h, dk_ref),
+                                ("dv", dv_h, dv_ref)):
+            err = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            finite = bool(torch.isfinite(got.float()).all())
+            row[f"{gname}_max_abs_err"] = err
+            row[f"{gname}_max_abs"] = scale
+            row["ok"] = row["ok"] and finite and err <= rtol * scale
+        if name == TRAIN_SHAPE[0]:
+            for kname, fn, plain, outputs, products in (
+                    ("dq", lambda: fa._flash_bwd_dq_cuda(
+                        q, k, v, do, lse, delta, **kw),
+                     lambda: fa._flash_bwd_dq_reference(
+                         q, k, v, do, lse, delta, **kw, **blk), 1, 3),
+                    ("dkv", lambda: fa._flash_bwd_dkv_cuda(
+                        q, k, v, do, lse, delta, **kw),
+                     lambda: fa._flash_bwd_dkv_reference(
+                         q, k, v, do, lse, delta, **kw, **blk), 2, 4)):
+                row[f"{kname}_ms"] = time_ms(fn)
+                row[f"{kname}_plain_ms"] = time_ms(plain, reps=3, inner=1,
+                                                   warmup=1)
+                row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = \
+                    _bwd_bound(b, H, KVH, l, D, causal, q.element_size(),
+                               tname, products, outputs)
+            row["library_ms"] = _sdpa_backward_ms(q, k, v, do, b, H, KVH, l,
+                                                  D, causal)
+        results.append(row)
+        emit("kernel flash_bwd", **row)
+        del q, k, v, do, o, lse, delta, dq, dk_h, dv_h, dq_ref, dk_ref, dv_ref
+        if not row["ok"]:
+            raise PhaseError(f"flash backward kernels disagree with their "
+                             f"plain versions on {name}")
+    return {"cases": results}
+
+
+def _sdpa_backward_ms(q, k, v, do, b, h, kvh, l, d, causal) -> float:
+    """The yardstick for the backward pair: the autograd grad of PyTorch's
+    ``scaled_dot_product_attention`` (KV expanded to H heads) minus its
+    forward.  The port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    rows = fa._kv_rows(b * h, h, kvh, DEV)
+    q4 = q.view(b, h, l, d).detach().requires_grad_()
+    k4 = k[rows].view(b, h, l, d).detach().requires_grad_()
+    v4 = v[rows].view(b, h, l, d).detach().requires_grad_()
+    do4 = do.view(b, h, l, d)
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+        torch.autograd.grad(out, (q4, k4, v4), do4)
+
+    return time_ms(fwd_bwd) - time_ms(fwd)
 
 
 def _model(n_layers: int, seed: int):
@@ -350,10 +518,195 @@ def phase_batcher(cfg, params, seed: int) -> dict:
     return {"launches": launches}
 
 
+def _train_flops(cfg, tokens: int) -> float:
+    """Model FLOP of one train step: 6·N·T for the N weights of the layers'
+    and the lm_head's products, plus six attention products per layer
+    (Q·Kᵀ and P·V forward; dP, dV, dQ and dK backward) over the causal
+    triangle.  The remat recompute is not counted."""
+    d, f, v = cfg.dim, cfg.ffn_dim, cfg.vocab_size
+    kdim = cfg.n_kv_heads * cfg.head_dim
+    n_mm = cfg.n_layers * (2 * d * d + 2 * d * kdim + 3 * d * f) + d * v
+    pairs = tokens * (tokens + 1) // 2
+    attn = cfg.n_layers * 6 * 2 * cfg.n_heads * cfg.head_dim * pairs
+    return 6 * n_mm * tokens + attn
+
+
+# Kernel names → the layer they belong to, for the train step's breakdown.
+_KERNEL_KINDS = (
+    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet")),
+    ("optimizer (AdamW)", ("adam",)),
+    ("nccl", ("nccl",)),
+    ("memcpy/memset", ("memcpy", "memset")),
+)
+
+
+def _device_breakdown(prof, wall_s: float) -> dict:
+    """Device time of one profiled step by kind of kernel, the device's busy
+    time (the union of kernel intervals) and its idle share of the step's
+    host wall time.  Profiling adds host overhead, so the idle share is an
+    upper bound for an unprofiled step."""
+    from torch.autograd import DeviceType
+
+    # Device events minus the ranges user annotations (Optimizer.step and
+    # the like) draw over the kernels they contain.
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    ms_by_kind: dict[str, float] = {}
+    by_name: dict[str, list] = {}
+    spans = []
+    for e in kernels:
+        low = e.name.lower()
+        kind = next((k for k, keys in _KERNEL_KINDS
+                     if any(key in low for key in keys)),
+                    "other (elementwise, reductions, casts)")
+        ms = e.device_time_total / 1e3
+        ms_by_kind[kind] = ms_by_kind.get(kind, 0.0) + ms
+        entry = by_name.setdefault(e.name[:90], [0.0, 0])
+        entry[0] += ms
+        entry[1] += 1
+        spans.append((e.time_range.start, e.time_range.end))
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy_ms = busy_us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {
+        "kernels": len(kernels), "wall_ms": wall_s * 1e3,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": (1 - busy_ms / (wall_s * 1e3)
+                              if kernels else None),
+        "ms_by_kind": ms_by_kind,
+        "top_kernels": [{"name": n, "ms": v[0], "count": v[1]}
+                        for n, v in top],
+    }
+
+
+def phase_train(n_layers: int, seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.optim.distributed_optimizer import (
+        DistributedOptimizer, broadcast_parameters, make_train_step,
+        tree_leaves)
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    basics.init()                     # NCCL, a world of one
+    cfg = llama.llama3_8b(attn_impl="flash", n_layers=n_layers)
+    assert cfg.remat and cfg.param_dtype == torch.float32
+    params = broadcast_parameters(llama.init_params(cfg, seed, device=DEV))
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    rng = np.random.RandomState(seed + 3)
+    tokens = torch.as_tensor(
+        rng.randint(0, cfg.vocab_size, (1, TRAIN_TOKENS + 1)), device=DEV)
+    batch = (tokens[:, :-1], tokens[:, 1:])
+    loss_fn = llama.make_loss_fn(cfg)
+
+    # Step 0's gradients, kernel backward against the blockwise recompute.
+    watched = ("wq", "wk", "wv", "wo")
+
+    def grads(bwd: str):
+        os.environ["HVD_TORCH_FLASH_BWD"] = bwd
+        try:
+            loss_fn(params, batch).backward()
+        finally:
+            os.environ.pop("HVD_TORCH_FLASH_BWD")
+        norm = float(torch.sqrt(sum(t.grad.float().pow(2).sum()
+                                    for t in leaves)))
+        kept = {n: params["layers"][n].grad.float().clone() for n in watched}
+        for t in leaves:
+            t.grad = None
+        return norm, kept
+
+    norm_k, g_k = grads("kernel")
+    norm_b, g_b = grads("blockwise")
+    leaf_err = {n: float((g_k[n] - g_b[n]).norm() / g_b[n].norm())
+                for n in watched}
+    del g_k, g_b
+    with torch.no_grad():
+        loss_plain = float(loss_fn(params, batch))
+        loss_fused = float(llama.loss_fn(
+            params, batch, dataclasses.replace(cfg, fused_loss_chunk=8192)))
+
+    opt = DistributedOptimizer(torch.optim.AdamW(
+        leaves, lr=2e-5, betas=(0.9, 0.95), weight_decay=0.1, fused=True))
+    step = make_train_step(loss_fn, opt, max_grad_norm=1.0)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, per_step = [], [], []
+    for i in range(5):          # four timed steps, then one under the profiler
+        prof = (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) if i == 4
+            else contextlib.nullcontext())
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        with prof:
+            t0 = time.perf_counter()
+            out = step(params, batch)
+            losses.append(float(out.loss))    # synchronises
+            sync()
+            seconds.append(time.perf_counter() - t0)
+        per_step.append({"flash_fwd": fa.launches,
+                         "flash_bwd_dq": fa.dq_launches,
+                         "flash_bwd_dkv": fa.dkv_launches})
+    step_s = statistics.median(seconds[1:4])
+    flops = _train_flops(cfg, TRAIN_TOKENS)
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    out = {
+        "n_layers": cfg.n_layers, "dim": cfg.dim, "n_heads": cfg.n_heads,
+        "n_kv_heads": cfg.n_kv_heads, "ffn_dim": cfg.ffn_dim,
+        "vocab_size": cfg.vocab_size, "tokens_per_step": TRAIN_TOKENS,
+        "remat": cfg.remat, "attn_impl": cfg.attn_impl,
+        "params": llama.num_params(cfg), "world_size": basics.size(),
+        "losses": losses, "step_seconds": seconds,
+        "step_s_median_2_4": step_s,
+        "profiled_step_5": _device_breakdown(prof, seconds[4]),
+        "train_tokens_per_s": TRAIN_TOKENS / step_s,
+        "model_flop_per_step": flops,
+        "model_flop_share_of_989T": flops / step_s / PEAK_BF16,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_per_step": per_step, "expected_launches_per_step": want,
+        "grad_norm_kernel": norm_k, "grad_norm_blockwise": norm_b,
+        "grad_norm_rtol": GRAD_NORM_RTOL, "grad_leaf_rel_err": leaf_err,
+        "grad_leaf_rtol": GRAD_LEAF_RTOL,
+        "loss_plain": loss_plain, "loss_fused_8192": loss_fused,
+        "fused_loss_rtol": FUSED_LOSS_RTOL,
+    }
+    checks = {
+        "launches": all(p == want for p in per_step),
+        "finite": all(np.isfinite(losses)),
+        "decreasing": losses[-1] < losses[0],
+        "grad_norm": abs(norm_k - norm_b) <= GRAD_NORM_RTOL * norm_b,
+        "grad_leaves": all(e <= GRAD_LEAF_RTOL for e in leaf_err.values()),
+        "fused_loss": abs(loss_fused - loss_plain)
+        <= FUSED_LOSS_RTOL * abs(loss_plain),
+    }
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    emit("train", **out)
+    basics.shutdown()
+    if not out["ok"]:
+        raise PhaseError(f"train failed its checks: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"launches": {k: sum(p[k] for p in per_step) for k in want}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-layers", type=int, default=32,
                     help="model depth (32 = Llama-3-8B); widths never change")
+    ap.add_argument("--train-layers", type=int, default=8,
+                    help="depth of the train phase (full width; 8 fits "
+                         "f32 weights, gradients and AdamW moments in 80 GB)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     try:
@@ -378,32 +731,67 @@ def main(argv=None) -> int:
         phase_build()
         phase = "kernel flash_fwd"
         kern = phase_kernel(args.seed)
+        phase = "kernel flash_bwd"
+        kern_bwd = phase_kernel_bwd(args.seed)
         phase = "serve generate"
         if args.n_layers != 32:
-            emit("depth cut", n_layers=args.n_layers, of=32)
+            emit("depth cut", path="serve", n_layers=args.n_layers, of=32)
         cfg, params = _model(args.n_layers, args.seed)
         gen = phase_generate(cfg, params, args.seed)
         phase = "serve batcher"
         bat = phase_batcher(cfg, params, args.seed)
+        del params
+        torch.cuda.empty_cache()
+        phase = "train"
+        emit("depth cut", path="train", n_layers=args.train_layers, of=32)
+        train = phase_train(args.train_layers, args.seed)
     except Exception as e:  # every failure ends the run without a result
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
         return 1
-    main_case = kern["cases"][0]
-    errs = [c["o_max_abs_err"] for c in kern["cases"] if c["dtype"] == "bf16"]
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "horovod_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "horovod_tpu/parallel/flash_attention.py:62",
-        "launches": gen["launches"] + bat["launches"],
-        "max_abs_err": max(errs),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-    }]}), flush=True)
+    print(json.dumps({"kernels": _kernel_rows(kern, kern_bwd, gen, bat,
+                                              train)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
         flush=True)
     return 0
+
+
+def _kernel_rows(kern, kern_bwd, gen, bat, train) -> list[dict]:
+    """One row per kernel: its launches on the main paths (serving's
+    generate and batcher, the train steps), its largest error over the bf16
+    cases and its times at its main shape (the generate prefill for the
+    forward, the training shape for the backward pair)."""
+    fwd = kern["cases"][0]
+    bwd = kern_bwd["cases"][0]
+    src = "horovod_tpu/parallel/flash_attention.py"
+    rows = [{
+        "name": "flash_fwd", "route": "cuda",
+        "source": "horovod_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": f"{src}:62",
+        "launches": (gen["launches"] + bat["launches"]
+                     + train["launches"]["flash_fwd"]),
+        "max_abs_err": max(c["o_max_abs_err"] for c in kern["cases"]
+                           if c["dtype"] == "bf16"),
+        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+        "library_ms": fwd["library_ms"],
+    }]
+    for name, key, line, grads in (("flash_bwd_dq", "dq", 188, ("dq",)),
+                                   ("flash_bwd_dkv", "dkv", 229, ("dk", "dv"))):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"{src}:{line}",
+            "launches": train["launches"][name],
+            "max_abs_err": max(c[f"{g}_max_abs_err"] for c in kern_bwd["cases"]
+                               for g in grads if c["dtype"] == "bf16"),
+            "ms": bwd[f"{key}_ms"], "plain_ms": bwd[f"{key}_plain_ms"],
+            "bound_ms": bwd[f"{key}_bound_ms"],
+            "bound_by": bwd[f"{key}_bound_by"],
+            # The backward pair's yardstick (SDPA's backward), on both rows.
+            "library_ms": bwd["library_ms"],
+        })
+    return rows
 
 
 if __name__ == "__main__":

@@ -1,16 +1,20 @@
-"""PyTorch/CUDA port of ``horovod_tpu``, for one NVIDIA Hopper card.
+"""PyTorch/CUDA port of ``horovod_tpu``, for NVIDIA Hopper cards.
 
 The JAX package ``horovod_tpu`` is the reference; each module here mirrors
-its counterpart's path and public names (``parallel/attention.py``,
-``parallel/flash_attention.py``, ``models/llama.py``, ``serving.py``) and is
-tested against it on the same inputs.  This package imports ``torch`` and
-never ``jax`` nor anything of ``horovod_tpu``.
+its counterpart's path and public names (``basics.py``, ``ops/``,
+``optim/distributed_optimizer.py``, ``parallel/attention.py``,
+``parallel/flash_attention.py``, ``models/llama.py``, ``serving.py``) and
+is tested against it on the same inputs.  This package imports ``torch``
+and never ``jax`` nor anything of ``horovod_tpu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request they raise (no silent fallback).
-The one TPU kernel on the serving path, the flash-attention forward, is a
-hand-written CUDA kernel (``csrc/flash_fwd.cu``) built with ``nvcc`` at
-first use into ``build/horovod_tpu_torch/``.
+The TPU's three Pallas kernels, the flash-attention forward and its dQ and
+dK/dV backward, are hand-written CUDA kernels (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``) built with ``nvcc`` at first use into
+``build/horovod_tpu_torch/``.  Training is data-parallel, one process per
+GPU, Horovod style: ``basics.init`` → ``broadcast_parameters`` →
+``DistributedOptimizer`` → ``make_train_step``.
 """
 
 from horovod_tpu_torch._device import resolve_device

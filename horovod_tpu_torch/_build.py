@@ -7,8 +7,9 @@ plain C interface::
          -Xcompiler -fPIC -o build/horovod_tpu_torch/lib<name>-<hash>.so <name>.cu
 
 at first use, from the sources in the checkout.  The file name carries a
-hash of the source, so an edited kernel is rebuilt and a built one is
-reused.  :func:`build_all` starts one ``nvcc`` per source, all at once.
+hash of the source and of the shared headers (``csrc/*.cuh``), so an edited
+kernel is rebuilt and a built one is reused.  :func:`build_all` starts one
+``nvcc`` per source, all at once.
 Nothing here runs at import time: the CPU tests import every module and
 this machine may have no ``nvcc``.
 """
@@ -48,8 +49,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(ARCH_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -33,118 +33,16 @@
 // shared memory instead of staying in registers, and no warp
 // specialisation or persistent scheduling.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace hvd_flash;
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per K/V tile
 constexpr int NWARPS = BQ / 16;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int PAD = 8;        // elements of padding per shared-memory row
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(const T* lo, const T* hi) {
-  const uint32_t a = *reinterpret_cast<const uint16_t*>(lo);
-  const uint32_t b = *reinterpret_cast<const uint16_t*>(hi);
-  return a | (b << 16);
-}
-
-template <typename T>
-__device__ __forceinline__ void mma_bf16_or_f16(float c[4], const uint32_t a[4],
-                                                const uint32_t b[2]);
-
-template <>
-__device__ __forceinline__ void mma_bf16_or_f16<__nv_bfloat16>(
-    float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <>
-__device__ __forceinline__ void mma_bf16_or_f16<__half>(
-    float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c[16x8] += A[16x16] · B[16x8], all operands in shared memory.
-// A is row-major with leading dimension lda.  B(k, n) is b[n*ldb + k] when
-// B_KMAJOR is false (K rows for Q·Kᵀ) and b[k*ldb + n] when it is true
-// (V rows for P·V).  The accumulator uses the mma.sync C layout: lane
-// (g = lane/4, t = lane%4) holds rows g and g+8, columns 2t and 2t+1.
-template <typename T, bool B_KMAJOR>
-__device__ __forceinline__ void mma_tile(float c[4], const T* a, int lda,
-                                         const T* b, int ldb, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  if constexpr (sizeof(T) == 2) {
-    uint32_t af[4], bf[2];
-    af[0] = *reinterpret_cast<const uint32_t*>(a + g * lda + 2 * t);
-    af[1] = *reinterpret_cast<const uint32_t*>(a + (g + 8) * lda + 2 * t);
-    af[2] = *reinterpret_cast<const uint32_t*>(a + g * lda + 2 * t + 8);
-    af[3] = *reinterpret_cast<const uint32_t*>(a + (g + 8) * lda + 2 * t + 8);
-    if constexpr (B_KMAJOR) {
-      bf[0] = pack2(b + (2 * t) * ldb + g, b + (2 * t + 1) * ldb + g);
-      bf[1] = pack2(b + (2 * t + 8) * ldb + g, b + (2 * t + 9) * ldb + g);
-    } else {
-      bf[0] = *reinterpret_cast<const uint32_t*>(b + g * ldb + 2 * t);
-      bf[1] = *reinterpret_cast<const uint32_t*>(b + g * ldb + 2 * t + 8);
-    }
-    mma_bf16_or_f16<T>(c, af, bf);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = g + ((i & 2) ? 8 : 0);
-      const int n = 2 * t + (i & 1);
-      float s = c[i];
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const float bv = B_KMAJOR ? to_f(b[k * ldb + n]) : to_f(b[n * ldb + k]);
-        s = fmaf(to_f(a[r * lda + k]), bv, s);
-      }
-      c[i] = s;
-    }
-  }
-}
-
-// Copy rows [row0, row0 + 64) of a row-major [L, D] matrix into shared
-// memory (leading dimension D + PAD), zero-filling rows >= L.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, int L,
-                                          int tid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CHUNKS = D / VEC;
-  for (int i = tid; i < 64 * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < L)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + PAD) + c) = val;
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
@@ -173,7 +71,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qw = Qs + warp * 16 * LDS;
   T* pw = Ps + warp * 16 * LDP;
 
-  load_tile<T, D>(Qs, qp, q0, L, tid);
+  load_tile<T, D, 64, NTHREADS>(Qs, qp, q0, L, tid);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -188,8 +86,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                 // the previous tile is no longer read
-    load_tile<T, D>(Ks, kp, k0, L, tid);
-    load_tile<T, D>(Vs, vp, k0, L, tid);
+    load_tile<T, D, 64, NTHREADS>(Ks, kp, k0, L, tid);
+    load_tile<T, D, 64, NTHREADS>(Vs, vp, k0, L, tid);
     __syncthreads();
 
     float s[BK / 8][4];
@@ -269,16 +167,11 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            cudaStream_t stream) {
   constexpr size_t smem =
       sizeof(T) * ((size_t)(BQ + 2 * BK) * (D + PAD) + (size_t)BQ * (BK + PAD));
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + BQ - 1) / BQ, B * H);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      L, H, KVH, causal, scale);
-  return (int)cudaGetLastError();
+  return launch_kernel(flash_fwd_kernel<T, D>, dim3((L + BQ - 1) / BQ, B * H),
+                       NTHREADS, smem, stream, static_cast<const T*>(q),
+                       static_cast<const T*>(k), static_cast<const T*>(v),
+                       static_cast<T*>(o), static_cast<float*>(lse), L, H, KVH,
+                       causal, scale);
 }
 
 }  // namespace

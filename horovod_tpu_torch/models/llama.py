@@ -1,33 +1,40 @@
-"""Llama-3-family transformer: the inference core of the port.
+"""Llama-3-family transformer: the inference and training core of the port.
 
 Port of ``horovod_tpu/models/llama.py``: the config, parameter init,
-``forward`` and the KV-cached serving path (``prefill``, ``decode_step``,
-``decode_chunk``, ``prefill_chunked``, sampling, ``generate``).  The JAX
+``forward`` with per-layer remat, the loss (``loss_fn``, ``make_loss_fn``,
+plain or through the chunked fused cross-entropy) and the KV-cached serving
+path (``prefill``, ``decode_step``, ``decode_chunk``, ``prefill_chunked``,
+sampling, ``generate``).  The JAX
 layouts are kept at every public function: activations ``[B, L, H, Dh]``,
 parameters a plain dict of stacked ``[n_layers, ...]`` tensors used as
 ``h @ w`` (``[in, out]``), KV cache ``[n_layers, B, max_len, KVH, Dh]``.
 
-PyTorch idiom inside: the layer ``lax.scan`` is a Python loop, ``jax.random``
-keys are ``torch.Generator``s, and the KV cache is updated in place (the
-JAX code donates it, so no caller sees the difference).  Weights are cast
+PyTorch idiom inside: the layer ``lax.scan`` is a Python loop, the
+``jax.checkpoint`` of each layer is ``torch.utils.checkpoint`` (named
+policies through selective checkpointing), ``jax.random`` keys are
+``torch.Generator``s, and the KV cache is updated in place (the JAX code
+donates it, so no caller sees the difference).  Weights are cast
 to ``cfg.dtype`` at each use, exactly as the reference; a server may hold
 them in ``cfg.dtype`` from load (``param_dtype=cfg.dtype``), which gives
 the same values, since the cast at use is then a no-op.
 
 The paged cache and speculative decoding come with the serving-engine
-slice; training (``loss_fn``, remat) with the training slice.
+slice; the sequence-parallel engines (ring, Ulysses) with a later one.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+import functools
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 
 from horovod_tpu_torch._device import resolve_device
+from horovod_tpu_torch.ops.fused_xent import fused_linear_cross_entropy
 from horovod_tpu_torch.parallel import attention as attn_mod
 from horovod_tpu_torch.parallel.flash_attention import flash_attention
 
@@ -49,6 +56,15 @@ class LlamaConfig:
     param_dtype: Any = torch.float32     # master weights
     attn_impl: str = "dense"  # dense | blockwise | flash (ring/ulysses later)
     attn_block_size: int = 512
+    remat: bool = True                 # checkpoint each layer in training
+    # Named remat policy, the reference's jax.checkpoint_policies names:
+    # "dots_saveable" keeps every matmul output, "dots_with_no_batch_dims_
+    # saveable" only the 2-D weight products (not attention's batched ones),
+    # "everything_saveable" all, "nothing_saveable" none.  None = full remat.
+    remat_policy: str | None = None
+    # Chunked fused linear+cross-entropy (ops/fused_xent.py): the loss
+    # without the [B·L, V] logits tensor; None keeps the plain path.
+    fused_loss_chunk: int | None = None
 
     @property
     def head_dim(self) -> int:
@@ -63,7 +79,7 @@ def llama_tiny(**overrides) -> LlamaConfig:
     """Test configuration: same architecture, toy widths."""
     base = LlamaConfig(
         vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
-        ffn_dim=128, max_seq_len=128, rope_theta=10000.0,
+        ffn_dim=128, max_seq_len=128, rope_theta=10000.0, remat=False,
     )
     return dataclasses.replace(base, **overrides)
 
@@ -225,27 +241,121 @@ def _logits(params: dict, x: torch.Tensor, cfg: LlamaConfig):
     return (x @ params["lm_head"].to(cfg.dtype)).float()
 
 
+_REMAT_POLICIES = (
+    "dots_saveable",
+    "dots_with_no_batch_dims_saveable",
+    "everything_saveable",
+    "nothing_saveable",
+)
+# Matrix products as the dispatcher sees them: a [B, L, D] @ [D, F] weight
+# product is a 2-D ``mm``/``addmm``; attention's head-batched products are
+# ``bmm``/``baddbmm``.
+_WEIGHT_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+_BATCHED_DOTS = {torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _remat_save(policy: str, op) -> bool:
+    if policy == "everything_saveable":
+        return True
+    if policy == "dots_saveable":
+        return op in _WEIGHT_DOTS or op in _BATCHED_DOTS
+    if policy == "dots_with_no_batch_dims_saveable":
+        return op in _WEIGHT_DOTS
+    return False                                    # nothing_saveable
+
+
+def _resolve_remat_policy(cfg: LlamaConfig) -> Callable | None:
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for the named
+    policy (None: full remat, nothing saved)."""
+    if cfg.remat_policy is None:
+        return None
+    if cfg.remat_policy not in _REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat_policy {cfg.remat_policy!r}; pick one of "
+            f"{_REMAT_POLICIES}")
+    policy = cfg.remat_policy
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if _remat_save(policy, op)
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             policy_fn)
+
+
+def _block(cfg: LlamaConfig, x, lp, cos, sin, positions_offset):
+    """One transformer layer: attention and MLP, each with its residual."""
+    b, l = x.shape[:2]
+    q, k, v = _qkv(cfg, x, lp, cos, sin)
+    o = _attention(cfg, q, k, v, positions_offset=positions_offset)
+    x = x + o.reshape(b, l, cfg.dim) @ lp["wo"].to(cfg.dtype)
+    return _mlp(cfg, x, lp)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
             positions_offset: int = 0,
             return_hidden: bool = False) -> torch.Tensor:
     """Token ids [B, L] → logits [B, L, V] (f32).
 
-    ``return_hidden=True`` stops after the final norm ([B, L, D])."""
+    With ``cfg.remat`` and autograd recording, each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward, or, with ``cfg.remat_policy``, those the
+    policy names are kept.  ``return_hidden=True`` stops after the final
+    norm ([B, L, D]) so the fused loss can stream the vocab projection."""
+    if cfg.remat_policy is not None and not cfg.remat:
+        raise ValueError(
+            "remat_policy is set but remat=False — policy-based remat "
+            "needs remat=True (remat_policy alone does nothing)")
+    context_fn = _resolve_remat_policy(cfg)   # fail fast on a bad name
     b, l = tokens.shape
-    dt = cfg.dtype
     x = _embed(params, tokens, cfg)
     positions = positions_offset + torch.arange(l, device=x.device)[None, :]
     cos, sin = rope_tables(cfg, positions.expand(b, l))
+    remat = cfg.remat and torch.is_grad_enabled()
+    extra = {} if context_fn is None else {"context_fn": context_fn}
+    # One unbind per stacked weight, not a select per layer: the backward
+    # of a select writes a zero-filled [n_layers, ...] gradient for every
+    # layer and adds it into .grad (O(n_layers²) traffic); unbind's backward
+    # stacks the per-layer gradients once.
+    layers = {name: params["layers"][name].unbind(0) for name in _LAYER_KEYS}
     for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
-        o = _attention(cfg, q, k, v, positions_offset=positions_offset)
-        x = x + o.reshape(b, l, cfg.dim) @ lp["wo"].to(dt)
-        x = _mlp(cfg, x, lp)
+        lp = {name: layers[name][i] for name in _LAYER_KEYS}
+        if remat:
+            x = ckpt.checkpoint(_block, cfg, x, lp, cos, sin,
+                                positions_offset, use_reentrant=False,
+                                **extra)
+        else:
+            x = _block(cfg, x, lp, cos, sin, positions_offset)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x
     return _logits(params, x, cfg)
+
+
+def loss_fn(params: dict, batch, cfg: LlamaConfig, **fw_kwargs
+            ) -> torch.Tensor:
+    """Next-token cross-entropy; batch = (tokens [B, L], targets [B, L]).
+
+    With ``cfg.fused_loss_chunk`` the vocab projection and the softmax run
+    chunk by chunk (ops/fused_xent.py): the same math without the
+    [B·L, V] logits."""
+    tokens, targets = batch
+    # `is not None`, not truthiness: fused_loss_chunk=0 must reach the
+    # op's chunk validation, not select the plain path.
+    if cfg.fused_loss_chunk is not None:
+        hidden = forward(params, tokens, cfg, return_hidden=True,
+                         **fw_kwargs)
+        b, l, d = hidden.shape
+        return fused_linear_cross_entropy(
+            hidden.reshape(b * l, d), params["lm_head"].to(cfg.dtype),
+            targets.reshape(-1), chunk_size=cfg.fused_loss_chunk)
+    logits = forward(params, tokens, cfg, **fw_kwargs)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1).long())
+
+
+def make_loss_fn(cfg: LlamaConfig, **fw_kwargs) -> Callable:
+    return functools.partial(loss_fn, cfg=cfg, **fw_kwargs)
 
 
 # ---------------------------------------------------------------------------

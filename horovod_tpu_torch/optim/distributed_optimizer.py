@@ -1,0 +1,208 @@
+"""DistributedOptimizer: data-parallel gradient averaging around a torch optimizer.
+
+Port of ``horovod_tpu/optim/distributed_optimizer.py``
+(``allreduce_gradients``, ``DistributedOptimizer``, ``TrainStepResult``,
+``make_train_step``, ``broadcast_parameters``).  The JAX package wraps an
+optax transformation inside one compiled SPMD program; the port runs one
+process per GPU and wraps a ``torch.optim.Optimizer``, Horovod's own torch
+idiom: after the backward, :meth:`DistributedOptimizer.synchronize`
+all-reduces every ``.grad`` in fusion buckets (one collective per bucket,
+compression applied) and ``step()`` then updates.  As in the JAX package
+the reduction runs after the whole backward (no hooks, no overlap), and
+clipping, where asked for, comes after it:
+backward → ``synchronize()`` → ``clip_grad_norm_`` → ``step()``.
+
+Top-k (``is_sparse``), stateful compressors (PowerSGD, error feedback),
+process sets, Adasum and ``broadcast_optimizer_state`` come with a later
+slice of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from horovod_tpu_torch.ops import collective_ops
+from horovod_tpu_torch.ops.collective_ops import Average, _ReduceOp
+from horovod_tpu_torch.ops.compression import Compression
+
+
+def tree_leaves(tree: Any) -> list[torch.Tensor]:
+    """The tensors of a parameter tree: nested dicts in sorted key order
+    (``jax.tree.leaves``' order), lists and tuples in order, or a module's
+    parameters."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.parameters())
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in tree_leaves(x)]
+    raise TypeError(f"not a parameter tree leaf: {type(tree).__name__}")
+
+
+def allreduce_gradients(
+    grads: list[torch.Tensor],
+    *,
+    op: _ReduceOp = Average,
+    compression=Compression.none,
+    fusion_threshold_bytes: int | None = None,
+) -> list[torch.Tensor]:
+    """All-reduce a list of gradients in place, fused into buckets of at
+    most ``fusion_threshold_bytes`` (one collective per bucket)."""
+    return collective_ops.grouped_allreduce_(
+        grads, op=op, compression=compression,
+        fusion_threshold_bytes=fusion_threshold_bytes)
+
+
+def _check_compression(compression) -> None:
+    later = ("init", "reduce", "quantized_allreduce", "sparse_allreduce")
+    if any(hasattr(compression, a) for a in later):
+        raise NotImplementedError(
+            f"{getattr(compression, '__name__', type(compression).__name__)}:"
+            f" stateful and wire-format compressors come with a later slice "
+            f"of the port; use Compression.none, fp16 or bf16")
+
+
+def _params_with_grad(optimizer) -> list[torch.Tensor]:
+    return [p for g in optimizer.param_groups for p in g["params"]
+            if p.grad is not None]
+
+
+class DistributedOptimizer:
+    """Wrap a ``torch.optim.Optimizer`` so its updates see the gradients
+    reduced over the world (averaged by default).
+
+    Keywords as the reference's: ``op``, ``compression`` (none / fp16 /
+    bf16), ``fusion_threshold_bytes`` (``None``: ``HOROVOD_FUSION_THRESHOLD``),
+    ``local`` (no communication at all) and ``backward_passes_per_step``
+    (k: ``.grad`` sums over k backward passes, as
+    ``optax.MultiSteps(use_grad_mean=False)`` does, and the allreduce and
+    the update run on the k-th; ``step()`` on the others only counts).
+    """
+
+    def __init__(
+        self,
+        optimizer: torch.optim.Optimizer,
+        *,
+        op: _ReduceOp = Average,
+        compression=Compression.none,
+        fusion_threshold_bytes: int | None = None,
+        is_sparse: bool = False,
+        local: bool = False,
+        backward_passes_per_step: int = 1,
+    ):
+        if is_sparse:
+            raise NotImplementedError(
+                "is_sparse (top-k gradients) comes with a later slice of the "
+                "port")
+        _check_compression(compression)
+        collective_ops._resolve_op(None, op)
+        if backward_passes_per_step < 1:
+            raise ValueError(f"backward_passes_per_step must be >= 1, got "
+                             f"{backward_passes_per_step}")
+        self.optimizer = optimizer
+        self.op = op
+        self.compression = compression
+        self.fusion_threshold_bytes = fusion_threshold_bytes
+        self.local = local
+        self.backward_passes_per_step = backward_passes_per_step
+        self._passes = 0            # backward passes since the last update
+        self._synchronized = False
+
+    @property
+    def param_groups(self):
+        return self.optimizer.param_groups
+
+    @property
+    def state(self):
+        return self.optimizer.state
+
+    @property
+    def accumulating(self) -> bool:
+        """True while the next ``step()`` only counts a backward pass."""
+        return self._passes + 1 < self.backward_passes_per_step
+
+    def synchronize(self) -> None:
+        """All-reduce every ``.grad`` now, in place (once per update)."""
+        if self._synchronized:
+            return
+        if not self.local:
+            allreduce_gradients(
+                [p.grad for p in _params_with_grad(self)], op=self.op,
+                compression=self.compression,
+                fusion_threshold_bytes=self.fusion_threshold_bytes)
+        self._synchronized = True
+
+    def step(self, closure: Callable | None = None):
+        """Count a backward pass; on the k-th, synchronize (unless that was
+        done already) and update."""
+        self._passes += 1
+        if self._passes < self.backward_passes_per_step:
+            return None
+        self.synchronize()
+        out = self.optimizer.step(closure)
+        self._passes = 0
+        self._synchronized = False
+        return out
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.optimizer.zero_grad(set_to_none=set_to_none)
+
+    def state_dict(self) -> dict:
+        return self.optimizer.state_dict()
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        self.optimizer.load_state_dict(state_dict)
+
+
+class TrainStepResult(NamedTuple):
+    params: Any
+    opt_state: Any
+    loss: torch.Tensor
+
+
+def make_train_step(
+    loss_fn: Callable[..., torch.Tensor],
+    optimizer: DistributedOptimizer | torch.optim.Optimizer,
+    *,
+    max_grad_norm: float | None = None,
+) -> Callable[..., TrainStepResult]:
+    """The canonical data-parallel step: ``step(params, batch)`` runs
+    ``loss_fn(params, batch)`` on this process's shard of the batch,
+    backward, ``synchronize()``, ``clip_grad_norm_(max_grad_norm)`` when
+    given, ``step()`` and ``zero_grad()``, and returns the updated params
+    (in place), the optimizer state and the loss averaged over the world.
+
+    Where the JAX step takes a rank-major batch and shards it over the mesh,
+    each process here passes its own rows.  Under
+    ``backward_passes_per_step=k`` the first k-1 calls only accumulate."""
+
+    def step(params, batch) -> TrainStepResult:
+        loss = loss_fn(params, batch)
+        loss.backward()
+        updating = not getattr(optimizer, "accumulating", False)
+        if updating and max_grad_norm is not None:
+            if isinstance(optimizer, DistributedOptimizer):
+                optimizer.synchronize()
+            torch.nn.utils.clip_grad_norm_(_params_with_grad(optimizer),
+                                           max_grad_norm)
+        optimizer.step()
+        if updating:
+            optimizer.zero_grad(set_to_none=True)
+        mean_loss = collective_ops.allreduce(loss.detach(), op=Average)
+        return TrainStepResult(params, optimizer.state, mean_loss)
+
+    return step
+
+
+@torch.no_grad()
+def broadcast_parameters(params: Any, root_rank: int = 0) -> Any:
+    """Make every process hold ``root_rank``'s parameters (in place), the
+    reference's model-init sync.  ``params``: a tree as for
+    :func:`tree_leaves`.  Returns ``params``."""
+    for t in tree_leaves(params):
+        collective_ops.broadcast_(t, root_rank)
+    return params

@@ -1,21 +1,26 @@
-"""Flash-attention forward: a hand-written Hopper kernel and its plain version.
+"""Flash attention: hand-written Hopper kernels and their plain versions.
 
-Port of ``horovod_tpu/parallel/flash_attention.py`` (``_flash_forward`` and
-the public ``flash_attention``).  The TPU's Pallas ``_flash_kernel`` becomes
-``csrc/flash_fwd.cu`` (CUDA C++ for ``sm_90a``, built by :mod:`.._build`);
-:func:`_flash_forward_reference` is the same computation in plain PyTorch
-(same block loop, causal block skip, tail mask, storage-dtype cast of P,
-1e-30 clamp and log-sum-exp).
+Port of ``horovod_tpu/parallel/flash_attention.py`` (``_flash_forward``,
+``_flash_backward``, the ``custom_vjp`` glue and the public
+``flash_attention``).  The TPU's three Pallas kernels become CUDA C++ for
+``sm_90a``, built by :mod:`.._build`:
+
+* ``_flash_kernel`` → ``csrc/flash_fwd.cu`` (:func:`_flash_forward_cuda`);
+* ``_flash_dq_kernel`` → ``csrc/flash_bwd.cu`` ``hvd_flash_bwd_dq``
+  (:func:`_flash_bwd_dq_cuda`);
+* ``_flash_dkv_kernel`` → ``csrc/flash_bwd.cu`` ``hvd_flash_bwd_dkv``
+  (:func:`_flash_bwd_dkv_cuda`).
+
+:func:`_flash_forward_reference` and :func:`_flash_backward_reference` are
+the same computations in plain PyTorch (same block loops, causal block
+skips, tail masks, storage-dtype casts, log-sum-exp, Δ and GQA group-sum).
 
 Dispatch is by the tensors' device: a CPU tensor takes the reference, a
-CUDA tensor takes the kernel or raises.  Nothing falls back.
-
-Backward: the dQ and dK/dV kernels (the reference's ``_flash_dq_kernel``
-and ``_flash_dkv_kernel``) come with slice 2 of the port (training).
-Until then a CUDA backward raises ``NotImplementedError`` unless
-``bwd="blockwise"`` (or ``HVD_TORCH_FLASH_BWD=blockwise``) recomputes the
-gradients through :func:`blockwise_attention`; on the CPU the default
-backward differentiates through the reference.
+CUDA tensor takes the kernels or raises.  Nothing falls back.  The
+backward runs the two kernels (or, on the CPU, the plain backward) unless
+``bwd="blockwise"`` (or ``HVD_TORCH_FLASH_BWD=blockwise``) asks for the
+cross-check oracle that recomputes the gradients through
+:func:`blockwise_attention`.
 """
 
 from __future__ import annotations
@@ -28,9 +33,12 @@ import torch
 
 from horovod_tpu_torch.parallel.attention import NEG_INF, blockwise_attention
 
-# Kernel launches so far; the wrapper adds one per launch and nothing else
-# touches it except callers that reset it to 0 to count a run.
+# Kernel launches so far, one counter per kernel: each wrapper adds one per
+# launch and nothing else touches them except callers that reset them to 0
+# to count a run.  ``launches`` counts the forward.
 launches = 0
+dq_launches = 0
+dkv_launches = 0
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _HEAD_DIM = 128       # the kernel's one head width (Llama-3)
@@ -89,7 +97,135 @@ def _flash_forward_reference(q, k, v, *, n_heads: int, n_kv_heads: int,
     return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
 
 
+def _group_sum(x: torch.Tensor, n_heads: int, n_kv_heads: int):
+    """Per-query-head [B·H, L, D] → per-KV-head [B·KVH, L, D]: the sum over
+    each GQA group of ``H / KVH`` consecutive heads, in x's dtype."""
+    bh, l, d = x.shape
+    b = bh // n_heads
+    return x.reshape(b, n_kv_heads, n_heads // n_kv_heads, l, d).sum(2).reshape(
+        b * n_kv_heads, l, d).to(x.dtype)
+
+
+def _delta(o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Δ = rowsum(dO∘O) in f32, [B·H, L]."""
+    return (g.float() * o.float()).sum(-1)
+
+
+def _bwd_block(q, kx, vx, g, lse, delta, q_start, k_start, *, causal,
+               block_q, block_k):
+    """P and dS (f32) of one (query block, key block) pair: S masked for
+    keys >= L and above the diagonal, P = exp(S − LSE), dP = g·Vᵀ,
+    dS = P∘(dP − Δ)·scale.  kx/vx hold the KV head of each q row."""
+    l, d = q.shape[1], q.shape[2]
+    qb = q[:, q_start:q_start + block_q].float()
+    kb = kx[:, k_start:k_start + block_k].float()
+    qpos = q_start + torch.arange(qb.shape[1], device=q.device)[:, None]
+    kpos = k_start + torch.arange(kb.shape[1], device=q.device)[None, :]
+    mask = kpos < l
+    if causal:
+        mask = mask & (qpos >= kpos)
+    scale = 1.0 / math.sqrt(d)
+    s = torch.where(mask, torch.matmul(qb, kb.transpose(1, 2)) * scale,
+                    NEG_INF)
+    p = torch.exp(s - lse[:, q_start:q_start + block_q, None])
+    dp = torch.matmul(g[:, q_start:q_start + block_q].float(),
+                      vx[:, k_start:k_start + block_k].float().transpose(1, 2))
+    return p, p * (dp - delta[:, q_start:q_start + block_q, None]) * scale
+
+
+def _flash_bwd_dq_reference(q, k, v, do, lse, delta, *, n_heads: int,
+                            n_kv_heads: int, causal: bool, block_q: int,
+                            block_k: int):
+    """Plain version of the dQ kernel: dQ [B·H, L, D] in q's dtype from
+    q, k, v, dO, LSE and Δ ([B·H, L] f32).  A loop over query blocks, each
+    summing dS·K over the key blocks up to the diagonal, dS rounded to k's
+    dtype first (the reference's ``_flash_dq_kernel``)."""
+    bh, l, d = q.shape
+    rows = _kv_rows(bh, n_heads, n_kv_heads, q.device)
+    kx, vx = k[rows], v[rows]
+    lse = lse.reshape(bh, l)
+    kw = dict(causal=causal, block_q=block_q, block_k=block_k)
+    out = []
+    for q_start in range(0, l, block_q):
+        acc = torch.zeros((bh, min(block_q, l - q_start), d),
+                          dtype=torch.float32, device=q.device)
+        for k_start in range(0, l, block_k):
+            if causal and k_start > q_start + block_q - 1:
+                continue
+            _, ds = _bwd_block(q, kx, vx, do, lse, delta, q_start, k_start,
+                               **kw)
+            kb = kx[:, k_start:k_start + block_k].float()
+            acc = acc + torch.matmul(ds.to(k.dtype).float(), kb)
+        out.append(acc.to(q.dtype))
+    return torch.cat(out, dim=1)
+
+
+def _flash_bwd_dkv_reference(q, k, v, do, lse, delta, *, n_heads: int,
+                             n_kv_heads: int, causal: bool, block_q: int,
+                             block_k: int):
+    """Plain version of the dK/dV kernel: dK and dV per *query* head,
+    ``([B·H, L, D], [B·H, L, D])`` in k's and v's dtypes.  A loop over key
+    blocks, each summing P'ᵀ·dO and dS'ᵀ·q over the query blocks from the
+    diagonal on, P rounded to dO's dtype and dS to q's first (the
+    reference's ``_flash_dkv_kernel``)."""
+    bh, l, d = q.shape
+    rows = _kv_rows(bh, n_heads, n_kv_heads, q.device)
+    kx, vx = k[rows], v[rows]
+    lse = lse.reshape(bh, l)
+    kw = dict(causal=causal, block_q=block_q, block_k=block_k)
+    dks, dvs = [], []
+    for k_start in range(0, l, block_k):
+        width = min(block_k, l - k_start)
+        dk = torch.zeros((bh, width, d), dtype=torch.float32, device=q.device)
+        dv = torch.zeros((bh, width, d), dtype=torch.float32, device=q.device)
+        for q_start in range(0, l, block_q):
+            if causal and q_start + block_q - 1 < k_start:
+                continue
+            p, ds = _bwd_block(q, kx, vx, do, lse, delta, q_start, k_start,
+                               **kw)
+            qb = q[:, q_start:q_start + block_q].float()
+            gb = do[:, q_start:q_start + block_q].float()
+            dv = dv + torch.matmul(p.to(do.dtype).float().transpose(1, 2), gb)
+            dk = dk + torch.matmul(ds.to(q.dtype).float().transpose(1, 2), qb)
+        dks.append(dk.to(k.dtype))
+        dvs.append(dv.to(v.dtype))
+    return torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+
+
+def _flash_backward_reference(q, k, v, o, lse, g, *, n_heads: int,
+                              n_kv_heads: int, causal: bool, block_q: int,
+                              block_k: int):
+    """Plain PyTorch backward.  q/o/g: [B·H, L, D]; k/v: [B·KVH, L, D];
+    lse: [B·H, L] or [B·H, L, 1] f32.  Returns ``(dq, dk, dv)`` in the
+    inputs' dtypes.
+
+    Step by step the reference's ``_flash_backward``: Δ in f32, the dQ
+    pass and the dK/dV pass (:func:`_flash_bwd_dq_reference`,
+    :func:`_flash_bwd_dkv_reference`), and the group-sum of the per-query-
+    head dK/dV in the storage dtype."""
+    delta = _delta(o, g)
+    kw = dict(n_heads=n_heads, n_kv_heads=n_kv_heads, causal=causal,
+              block_q=block_q, block_k=block_k)
+    dq = _flash_bwd_dq_reference(q, k, v, g, lse, delta, **kw)
+    dk_h, dv_h = _flash_bwd_dkv_reference(q, k, v, g, lse, delta, **kw)
+    return (dq, _group_sum(dk_h, n_heads, n_kv_heads),
+            _group_sum(dv_h, n_heads, n_kv_heads))
+
+
 def _check_cuda_inputs(q, k, v, n_heads, n_kv_heads):
+    """Shapes first (they do not depend on the device), then device, dtype
+    and layout."""
+    bh, l, d = q.shape
+    if d != _HEAD_DIM:
+        raise ValueError(f"flash kernel: head dim {d}, the kernel takes "
+                         f"{_HEAD_DIM}")
+    if n_heads % n_kv_heads or bh % n_heads:
+        raise ValueError(f"flash kernel: {bh} q rows, {n_heads} heads and "
+                         f"{n_kv_heads} kv heads do not divide")
+    want = (bh // n_heads * n_kv_heads, l, d)
+    if tuple(k.shape) != want or tuple(v.shape) != want:
+        raise ValueError(f"flash kernel: k/v must be {want}, got "
+                         f"{tuple(k.shape)}/{tuple(v.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash kernel: {name} is on {t.device}, not CUDA")
@@ -104,30 +240,46 @@ def _check_cuda_inputs(q, k, v, n_heads, n_kv_heads):
         raise TypeError("flash kernel: q/k/v must share one dtype")
     if not (q.device == k.device == v.device):
         raise ValueError("flash kernel: q/k/v must be on one device")
-    bh, l, d = q.shape
-    if d != _HEAD_DIM:
-        raise ValueError(f"flash kernel: head dim {d}, the kernel takes "
-                         f"{_HEAD_DIM}")
-    if n_heads % n_kv_heads or bh % n_heads:
-        raise ValueError(f"flash kernel: {bh} q rows, {n_heads} heads and "
-                         f"{n_kv_heads} kv heads do not divide")
-    want = (bh // n_heads * n_kv_heads, l, d)
-    if tuple(k.shape) != want or tuple(v.shape) != want:
-        raise ValueError(f"flash kernel: k/v must be {want}, got "
-                         f"{tuple(k.shape)}/{tuple(v.shape)}")
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    """``csrc/flash_fwd.cu`` built and loaded, its C signatures declared."""
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# C signatures of the kernels' entry points: pointers, then B, H, KVH, L, D,
+# dtype and causal as ints, then the softmax scale and the stream.
+_SIGNATURES = {
+    "flash_fwd": {"hvd_flash_fwd": 5},
+    "flash_bwd": {"hvd_flash_bwd_dq": 7, "hvd_flash_bwd_dkv": 8},
+}
+
+
+def _kernel_lib(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built and loaded, its C signatures declared."""
     from horovod_tpu_torch import _build
 
-    lib = _build.load("flash_fwd")
-    lib.hvd_flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
-    lib.hvd_flash_fwd.restype = ctypes.c_int
-    lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
+    lib = _build.load(name)
+    for fn, n_ptrs in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = [_PTR] * n_ptrs + [_INT] * 7 + [ctypes.c_float, _PTR]
+        f.restype = _INT
+    lib.hvd_cuda_error_string.argtypes = [_INT]
     lib.hvd_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _launch(name: str, fn: str, tensors, q, n_heads, n_kv_heads, causal):
+    """Call C entry ``fn`` of kernel library ``name`` on the current stream
+    with the pointers of ``tensors`` and q's shape; raise if the launch is
+    refused."""
+    lib = _kernel_lib(name)
+    bh, l, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, fn)(
+            *(t.data_ptr() for t in tensors), bh // n_heads, n_heads,
+            n_kv_heads, l, d, _DTYPE_CODE[q.dtype], int(causal),
+            1.0 / math.sqrt(d), stream)
+    if rc != 0:
+        msg = lib.hvd_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} (cudaError {rc})")
 
 
 def _flash_forward_cuda(q, k, v, *, n_heads: int, n_kv_heads: int,
@@ -137,21 +289,69 @@ def _flash_forward_cuda(q, k, v, *, n_heads: int, n_kv_heads: int,
     ``block_q``/``block_k``."""
     global launches
     _check_cuda_inputs(q, k, v, n_heads, n_kv_heads)
-    lib = _kernel_lib()
     bh, l, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, l, 1), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.hvd_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), bh // n_heads, n_heads, n_kv_heads, l, d,
-            _DTYPE_CODE[q.dtype], int(causal), 1.0 / math.sqrt(d), stream)
-    if rc != 0:
-        msg = lib.hvd_cuda_error_string(rc).decode()
-        raise RuntimeError(f"flash_fwd launch failed: {msg} (cudaError {rc})")
+    _launch("flash_fwd", "hvd_flash_fwd", (q, k, v, o, lse), q, n_heads,
+            n_kv_heads, causal)
     launches += 1
     return o, lse
+
+
+def _check_bwd_inputs(q, k, v, do, lse, delta, n_heads, n_kv_heads):
+    _check_cuda_inputs(q, k, v, n_heads, n_kv_heads)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"flash backward: dO must match q, got "
+                         f"{tuple(do.shape)} {do.dtype} on {do.device}")
+    if not do.is_contiguous() or do.data_ptr() % 16:
+        raise ValueError("flash backward: dO is not contiguous and aligned")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or t.device != q.device
+                or t.numel() != q.shape[0] * q.shape[1]
+                or not t.is_contiguous()):
+            raise ValueError(f"flash backward: {name} must be a contiguous "
+                             f"f32 [B·H, L] on {q.device}")
+
+
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, n_heads: int,
+                       n_kv_heads: int, causal: bool):
+    """Launch ``hvd_flash_bwd_dq`` (``csrc/flash_bwd.cu``): dQ [B·H, L, D]
+    in q's dtype from q, k, v, dO, the forward's LSE and Δ ([B·H, L] f32)."""
+    global dq_launches
+    _check_bwd_inputs(q, k, v, do, lse, delta, n_heads, n_kv_heads)
+    dq = torch.empty_like(q)
+    _launch("flash_bwd", "hvd_flash_bwd_dq", (q, k, v, do, lse, delta, dq), q,
+            n_heads, n_kv_heads, causal)
+    dq_launches += 1
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, n_heads: int,
+                        n_kv_heads: int, causal: bool):
+    """Launch ``hvd_flash_bwd_dkv`` (``csrc/flash_bwd.cu``): dK and dV per
+    *query* head, ``([B·H, L, D], [B·H, L, D])`` in k's dtype, for
+    :func:`_group_sum`."""
+    global dkv_launches
+    _check_bwd_inputs(q, k, v, do, lse, delta, n_heads, n_kv_heads)
+    dk_h, dv_h = torch.empty_like(q), torch.empty_like(q)
+    _launch("flash_bwd", "hvd_flash_bwd_dkv",
+            (q, k, v, do, lse, delta, dk_h, dv_h), q, n_heads, n_kv_heads,
+            causal)
+    dkv_launches += 1
+    return dk_h, dv_h
+
+
+def _flash_backward_cuda(q, k, v, o, lse, g, *, n_heads: int,
+                         n_kv_heads: int, causal: bool):
+    """The two backward kernels around Δ and the GQA group-sum, which stay
+    torch ops as they are XLA ops outside the Pallas kernels."""
+    delta = _delta(o, g)
+    lse = lse.reshape(delta.shape)
+    kw = dict(n_heads=n_heads, n_kv_heads=n_kv_heads, causal=causal)
+    dq = _flash_bwd_dq_cuda(q, k, v, g, lse, delta, **kw)
+    dk_h, dv_h = _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, **kw)
+    return (dq, _group_sum(dk_h, n_heads, n_kv_heads),
+            _group_sum(dv_h, n_heads, n_kv_heads))
 
 
 def _flash_forward(q, k, v, *, n_heads: int, n_kv_heads: int, causal: bool,
@@ -165,48 +365,58 @@ def _flash_forward(q, k, v, *, n_heads: int, n_kv_heads: int, causal: bool,
                                n_kv_heads=n_kv_heads, causal=causal)
 
 
+def _flash_backward(q, k, v, o, lse, g, *, n_heads: int, n_kv_heads: int,
+                    causal: bool, block_q: int, block_k: int):
+    """CPU tensors take the plain backward; CUDA tensors take the kernels."""
+    if q.device.type == "cpu":
+        return _flash_backward_reference(
+            q, k, v, o, lse, g, n_heads=n_heads, n_kv_heads=n_kv_heads,
+            causal=causal, block_q=block_q, block_k=block_k)
+    return _flash_backward_cuda(q, k, v, o, lse, g, n_heads=n_heads,
+                                n_kv_heads=n_kv_heads, causal=causal)
+
+
+def _blockwise_grads(q, k, v, g, *, n_heads, n_kv_heads, causal, block_k):
+    """The cross-check oracle: gradients recomputed through
+    :func:`blockwise_attention` by autograd."""
+    b = q.shape[0] // n_heads
+    l, d = q.shape[1], q.shape[2]
+
+    def fn(q, k, v):
+        qb = q.reshape(b, n_heads, l, d).transpose(1, 2)
+        kb = k.reshape(b, n_kv_heads, l, d).transpose(1, 2)
+        vb = v.reshape(b, n_kv_heads, l, d).transpose(1, 2)
+        out = blockwise_attention(qb, kb, vb, causal=causal,
+                                  block_size=block_k)
+        return out.transpose(1, 2).reshape(b * n_heads, l, d)
+
+    with torch.enable_grad():
+        qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+        return torch.autograd.grad(fn(qd, kd, vd), (qd, kd, vd), g)
+
+
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, n_heads, n_kv_heads, causal, block_q, block_k,
                 bwd_impl):
-        out, _ = _flash_forward(q, k, v, n_heads=n_heads,
-                                n_kv_heads=n_kv_heads, causal=causal,
-                                block_q=block_q, block_k=block_k)
-        ctx.save_for_backward(q, k, v)
+        out, lse = _flash_forward(q, k, v, n_heads=n_heads,
+                                  n_kv_heads=n_kv_heads, causal=causal,
+                                  block_q=block_q, block_k=block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.cfg = (n_heads, n_kv_heads, causal, block_q, block_k, bwd_impl)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         n_heads, n_kv_heads, causal, block_q, block_k, bwd_impl = ctx.cfg
+        kw = dict(n_heads=n_heads, n_kv_heads=n_kv_heads, causal=causal)
+        g = g.contiguous()
         if bwd_impl == "blockwise":
-            b = q.shape[0] // n_heads
-            l, d = q.shape[1], q.shape[2]
-
-            def fn(q, k, v):
-                qb = q.reshape(b, n_heads, l, d).transpose(1, 2)
-                kb = k.reshape(b, n_kv_heads, l, d).transpose(1, 2)
-                vb = v.reshape(b, n_kv_heads, l, d).transpose(1, 2)
-                out = blockwise_attention(qb, kb, vb, causal=causal,
-                                          block_size=block_k)
-                return out.transpose(1, 2).reshape(b * n_heads, l, d)
-        elif q.device.type == "cpu":
-            def fn(q, k, v):
-                return _flash_forward_reference(
-                    q, k, v, n_heads=n_heads, n_kv_heads=n_kv_heads,
-                    causal=causal, block_q=block_q, block_k=block_k)[0]
+            dq, dk, dv = _blockwise_grads(q, k, v, g, block_k=block_k, **kw)
         else:
-            raise NotImplementedError(
-                "flash_attention backward on CUDA needs the dQ and dK/dV "
-                "kernels (horovod_tpu/parallel/flash_attention.py "
-                "_flash_dq_kernel, _flash_dkv_kernel), which come with "
-                "slice 2 of the port (training); use bwd='blockwise' "
-                "meanwhile")
-        with torch.enable_grad():
-            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
-            out = fn(qd, kd, vd)
-            dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), g)
+            dq, dk, dv = _flash_backward(q, k, v, o, lse, g, block_q=block_q,
+                                         block_k=block_k, **kw)
         return dq, dk, dv, None, None, None, None, None, None
 
 
