@@ -11,12 +11,16 @@ Phases, one JSON line each; any failure exits non-zero before the result:
 2. ``build``: compiles every kernel under ``horovod_tpu_torch/csrc`` with
    ``nvcc`` for ``sm_90a`` (one process per source, all at once) into
    ``build/horovod_tpu_torch/``.
-3. ``kernel flash_fwd``: the hand-written flash-attention forward against
-   its plain PyTorch version on the same inputs, at Llama-3-8B attention
-   shapes (generate's prefill and the training shape among them), plus the
-   kernel's, the plain version's and PyTorch's
-   ``scaled_dot_product_attention`` time (that call is only a yardstick:
-   the port never makes it).
+3. ``kernel flash_fwd``: the hand-written flash-attention forward (the
+   Hopper kernel for bf16/f16, the ``mma.sync`` kernel for f32) against its
+   plain PyTorch version on the same inputs at the kernel's own tile sizes,
+   at Llama-3-8B attention shapes (generate's prefill and the training
+   shape among them).  Timed cases report the kernel's device time (from
+   ``torch.profiler``), its CUDA-event loop time and the wrapper's host
+   time per call; ``prev_ms``, the earlier ``mma.sync`` kernel on the same
+   bf16 inputs; the plain version's time; and PyTorch's
+   ``scaled_dot_product_attention`` (only a yardstick: the port never
+   makes it).
 4. ``kernel flash_bwd``: the dQ and dK/dV kernels against their plain
    versions on the same inputs (O and LSE from the forward kernel, a random
    dO), five cases; at the training shape their times, bounds and SDPA's
@@ -52,6 +56,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -64,11 +69,15 @@ DEV = "cuda"
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
 
-# Tolerances of the kernel against its plain version.  Both round P to the
-# storage dtype at their own running max (64-key tiles in the kernel,
-# 512-key blocks in the reference) and round o to it once, so o may differ
-# by about two units in the last place of the storage dtype, relative to
-# |o|, plus the f32 summation order.  The LSE is f32 from exact products.
+# Tolerances of the kernel against its plain version, compared at the
+# kernel's own tiles (128 × 128 for the Hopper kernel, 64 × 64 for f32), so
+# both round P to the storage dtype at the same running max.  P still
+# differs by a few f32 units in the last place (the kernel takes exp2 with
+# log2(e)·scale folded in, the reference exp of the scaled score, and the
+# products sum in another order), which moves P's rounding only at a tie;
+# both round o once.  So o may differ by about two units in the last place
+# of the storage dtype relative to |o|, plus the f32 summation order.  The
+# LSE is f32 from exact products.
 O_TOL = {"bf16": (1e-2, 2 ** -7), "f16": (2e-3, 2 ** -9), "f32": (1e-4, 1e-5)}
 LSE_TOL = 1e-3
 
@@ -118,6 +127,49 @@ def sync() -> None:
     import torch
 
     torch.cuda.synchronize()
+
+
+def device_ms(fn, n: int = 20, tries: int = 3) -> tuple[float, list[str]]:
+    """Device time per call of ``fn`` from ``torch.profiler`` over ``n``
+    calls: for each kernel name, the median of its own device intervals
+    times how many it launches per call, summed; and the kernels' names.
+    The median keeps the number right when the profiler drops some events
+    (seen on the card); a session that records none is tried again."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    sync()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            sync()
+        by_name: dict[str, list[float]] = {}
+        for e in prof.events():
+            if (e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
+                by_name.setdefault(e.name, []).append(e.device_time_total)
+        if by_name:
+            us = sum(statistics.median(d) * round(len(d) / n)
+                     for d in by_name.values())
+            return us / 1e3, sorted(name[:80] for name in by_name)
+    raise PhaseError("torch.profiler recorded no device time")
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Host time per call of ``fn`` (its checks, allocations and launch),
+    the device left to run behind it."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    seconds = time.perf_counter() - t0
+    sync()
+    return seconds / n * 1e6
 
 
 def time_ms(fn, *, reps: int = 7, inner: int = 5, warmup: int = 2) -> float:
@@ -171,14 +223,35 @@ def phase_build() -> None:
     seconds = time.perf_counter() - t0
     ptxas = [ln.strip() for log in _build.build_logs.values()
              for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
     emit("build", ok=True, seconds=seconds, sources=_build.sources(),
          ptxas=ptxas)
+    return {"seconds": seconds, "kernels": _ptxas_kernels(ptxas)}
+
+
+def _ptxas_kernels(lines) -> dict:
+    """``{mangled kernel name: {"registers": n, "spill_bytes": n}}`` (spill
+    stores) from ``nvcc -Xptxas -v``'s report."""
+    out: dict[str, dict] = {}
+    name = None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = {}
+        elif name and (spill := re.search(r"(\d+) bytes spill stores", ln)):
+            out[name]["spill_bytes"] = int(spill.group(1))
+        elif name and (used := re.search(r"Used (\d+) registers", ln)):
+            out[name]["registers"] = int(used.group(1))
+    return out
+
+
+def _flash_flops(b, h, l, d, causal) -> int:
+    pairs = l * (l + 1) // 2 if causal else l * l
+    return 4 * b * h * d * pairs                  # Q·Kᵀ and P·V
 
 
 def _flash_bound(b, h, kvh, l, d, causal, elem, tname):
-    pairs = l * (l + 1) // 2 if causal else l * l
-    flops = 4 * b * h * d * pairs                 # Q·Kᵀ and P·V
+    flops = _flash_flops(b, h, l, d, causal)
     nbytes = (2 * b * h + 2 * b * kvh) * l * d * elem + b * h * l * 4
     t_ops = flops / PEAK_FLOPS[tname]
     t_bytes = nbytes / PEAK_BYTES
@@ -188,7 +261,6 @@ def _flash_bound(b, h, kvh, l, d, causal, elem, tname):
 
 def phase_kernel(seed: int) -> dict:
     import torch
-    import torch.nn.functional as F
 
     from horovod_tpu_torch.parallel import flash_attention as fa
 
@@ -211,7 +283,7 @@ def phase_kernel(seed: int) -> dict:
         q = torch.randn((b * H, l, D), generator=gen, device=DEV).to(dtype)
         k = torch.randn((b * KVH, l, D), generator=gen, device=DEV).to(dtype)
         v = torch.randn((b * KVH, l, D), generator=gen, device=DEV).to(dtype)
-        blk = min(512, l)
+        blk = 64 if dtype == torch.float32 else 128   # the kernel's tiles
         o, lse = fa._flash_forward_cuda(q, k, v, n_heads=H, n_kv_heads=KVH,
                                         causal=causal)
         sync()
@@ -227,30 +299,68 @@ def phase_kernel(seed: int) -> dict:
         ok = finite and o_excess <= atol and lse_err <= LSE_TOL
         row = {"case": name, "dtype": tname, "B": b, "L": l, "H": H,
                "KVH": KVH, "D": D, "causal": causal,
+               "entry": fa._FWD_ENTRY[dtype], "ref_block": blk,
                "o_max_abs_err": o_err, "o_tol": f"{atol} + {rtol}*|o|",
                "o_excess_over_tol": o_excess, "lse_max_abs_err": lse_err,
                "lse_tol": LSE_TOL, "ok": ok}
-        if b > 1 or l >= 512:
-            row["ms"] = time_ms(lambda: fa._flash_forward_cuda(
-                q, k, v, n_heads=H, n_kv_heads=KVH, causal=causal))
-            row["plain_ms"] = time_ms(lambda: fa._flash_forward_reference(
-                q, k, v, n_heads=H, n_kv_heads=KVH, causal=causal,
-                block_q=blk, block_k=blk), reps=3, inner=1, warmup=1)
-            rows = fa._kv_rows(b * H, H, KVH, DEV)
-            q4 = q.view(b, H, l, D)
-            k4 = k[rows].view(b, H, l, D)
-            v4 = v[rows].view(b, H, l, D)
-            row["library_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                       is_causal=causal))
-            row["bound_ms"], row["bound_by"] = _flash_bound(
-                b, H, KVH, l, D, causal, q.element_size(), tname)
+        if ok and (b > 1 or l >= 512):
+            row.update(_time_forward(q, k, v, b, l, causal, blk, tname))
         results.append(row)
         emit("kernel flash_fwd", **row)
         del q, k, v, o, lse, o_ref, lse_ref
         if not ok:
             raise PhaseError(f"flash_fwd disagrees with its reference on {name}")
     return {"cases": results}
+
+
+def _time_forward(q, k, v, b, l, causal, blk, tname) -> dict:
+    """Times of one forward case: the kernel through its wrapper (device
+    time, CUDA-event loop time, host time per call), the earlier mma.sync
+    kernel on the same inputs (``prev``), the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    H, KVH, D = ATTN_HEADS
+    kw = dict(n_heads=H, n_kv_heads=KVH, causal=causal)
+
+    def kernel():
+        fa._flash_forward_cuda(q, k, v, **kw)
+
+    o_prev = torch.empty_like(q)
+    lse_prev = torch.empty((q.shape[0], l, 1), dtype=torch.float32, device=DEV)
+
+    def prev():
+        fa._launch("flash_fwd", "hvd_flash_fwd_mma", (q, k, v, o_prev, lse_prev),
+                   q, H, KVH, causal)
+
+    rows = fa._kv_rows(b * H, H, KVH, DEV)
+    q4 = q.view(b, H, l, D)
+    k4 = k[rows].view(b, H, l, D)
+    v4 = v[rows].view(b, H, l, D)
+
+    def sdpa():
+        F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+
+    out = {}
+    out["ms"], out["kernel_names"] = device_ms(kernel)
+    out["wall_ms"] = time_ms(kernel)
+    out["host_us_per_call"] = host_us(kernel)
+    if q.dtype != torch.float32:
+        out["prev_ms"], out["prev_names"] = device_ms(prev)
+        out["prev_wall_ms"] = time_ms(prev)
+    out["library_ms"], out["library_names"] = device_ms(sdpa)
+    out["library_wall_ms"] = time_ms(sdpa)
+    out["plain_ms"] = time_ms(lambda: fa._flash_forward_reference(
+        q, k, v, block_q=blk, block_k=blk, **kw), reps=3, inner=1, warmup=1)
+    out["bound_ms"], out["bound_by"] = _flash_bound(
+        b, H, KVH, l, D, causal, q.element_size(), tname)
+    out["tflops"] = _flash_flops(b, H, l, D, causal) / out["ms"] / 1e9
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    if "prev_ms" in out:
+        out["speedup_vs_prev"] = out["prev_ms"] / out["ms"]
+    return out
 
 
 # Tolerances of the backward kernels against their plain versions, relative
@@ -533,7 +643,7 @@ def _train_flops(cfg, tokens: int) -> float:
 
 # Kernel names → the layer they belong to, for the train step's breakdown.
 _KERNEL_KINDS = (
-    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel")),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet")),
@@ -728,7 +838,7 @@ def main(argv=None) -> int:
     try:
         info = phase_device()
         phase = "build"
-        phase_build()
+        build = phase_build()
         phase = "kernel flash_fwd"
         kern = phase_kernel(args.seed)
         phase = "kernel flash_bwd"
@@ -748,7 +858,7 @@ def main(argv=None) -> int:
     except Exception as e:  # every failure ends the run without a result
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
         return 1
-    print(json.dumps({"kernels": _kernel_rows(kern, kern_bwd, gen, bat,
+    print(json.dumps({"kernels": _kernel_rows(build, kern, kern_bwd, gen, bat,
                                               train)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
@@ -756,25 +866,42 @@ def main(argv=None) -> int:
     return 0
 
 
-def _kernel_rows(kern, kern_bwd, gen, bat, train) -> list[dict]:
+def _kernel_rows(build, kern, kern_bwd, gen, bat, train) -> list[dict]:
     """One row per kernel: its launches on the main paths (serving's
     generate and batcher, the train steps), its largest error over the bf16
     cases and its times at its main shape (the generate prefill for the
-    forward, the training shape for the backward pair)."""
+    forward, the training shape for the backward pair).  The forward's
+    ``ms`` is device time; its row adds ``prev_ms`` (the earlier mma.sync
+    kernel, same run, same inputs), the build's registers and spills, its
+    shared memory, and the same times at the training shape."""
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
     fwd = kern["cases"][0]
+    trn = next(c for c in kern["cases"] if c["case"] == TRAIN_SHAPE[0])
     bwd = kern_bwd["cases"][0]
     src = "horovod_tpu/parallel/flash_attention.py"
+    ptx = [v for k, v in build["kernels"].items()
+           if "flash_fwd_wgmma_kernel" in k]
+    times = ("ms", "wall_ms", "host_us_per_call", "prev_ms", "plain_ms",
+             "library_ms", "bound_ms", "tflops", "share_of_bound")
     rows = [{
-        "name": "flash_fwd", "route": "cuda",
+        "name": "flash_fwd", "route": "cuda", "design": "cuda wgmma+tma",
         "source": "horovod_tpu_torch/csrc/flash_fwd.cu",
         "replaces": f"{src}:62",
         "launches": (gen["launches"] + bat["launches"]
                      + train["launches"]["flash_fwd"]),
         "max_abs_err": max(c["o_max_abs_err"] for c in kern["cases"]
                            if c["dtype"] == "bf16"),
-        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "ms": fwd["ms"], "wall_ms": fwd["wall_ms"],
+        "host_us_per_call": fwd["host_us_per_call"],
+        "prev_ms": fwd["prev_ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"],
+        "registers": max((p.get("registers", 0) for p in ptx), default=None),
+        "spill_bytes": max((p.get("spill_bytes", 0) for p in ptx),
+                           default=None),
+        "smem_bytes": fa.fwd_smem_bytes(),
+        "train_shape": {k: trn[k] for k in times},
     }]
     for name, key, line, grads in (("flash_bwd_dq", "dq", 188, ("dq",)),
                                    ("flash_bwd_dkv", "dkv", 229, ("dk", "dv"))):

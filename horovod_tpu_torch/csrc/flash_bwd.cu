@@ -289,13 +289,12 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               int KVH, int L, int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = sizeof(T) * ((size_t)(2 * BQ + 2 * BK) * (D + PAD) +
                                        (size_t)BQ * (BK + PAD));
-  return launch_kernel(flash_bwd_dq_kernel<T, D>, dim3((L + BQ - 1) / BQ, B * H),
-                       DQ_THREADS, smem, stream, static_cast<const T*>(q),
-                       static_cast<const T*>(k), static_cast<const T*>(v),
-                       static_cast<const T*>(dout),
-                       static_cast<const float*>(lse),
-                       static_cast<const float*>(delta), static_cast<T*>(dq),
-                       L, H, KVH, causal, scale);
+  return launch_kernel<flash_bwd_dq_kernel<T, D>, smem>(
+      dim3((L + BQ - 1) / BQ, B * H), DQ_THREADS, stream,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), L, H, KVH, causal, scale);
 }
 
 template <typename T, int D>
@@ -306,14 +305,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   constexpr size_t smem = sizeof(T) * ((size_t)(2 * BQ + 2 * BK) * (D + PAD) +
                                        (size_t)2 * BK * (BQ + PAD)) +
                           sizeof(float) * 2 * BQ;
-  return launch_kernel(flash_bwd_dkv_kernel<T, D>,
-                       dim3((L + BK - 1) / BK, B * H), DKV_THREADS, smem,
-                       stream, static_cast<const T*>(q),
-                       static_cast<const T*>(k), static_cast<const T*>(v),
-                       static_cast<const T*>(dout),
-                       static_cast<const float*>(lse),
-                       static_cast<const float*>(delta), static_cast<T*>(dk),
-                       static_cast<T*>(dv), L, H, KVH, causal, scale);
+  return launch_kernel<flash_bwd_dkv_kernel<T, D>, smem>(
+      dim3((L + BK - 1) / BK, B * H), DKV_THREADS, stream,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), L, H, KVH, causal, scale);
 }
 
 bool bad_shape(int B, int H, int KVH, int L, int D) {

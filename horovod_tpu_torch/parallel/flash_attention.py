@@ -5,7 +5,9 @@ Port of ``horovod_tpu/parallel/flash_attention.py`` (``_flash_forward``,
 ``flash_attention``).  The TPU's three Pallas kernels become CUDA C++ for
 ``sm_90a``, built by :mod:`.._build`:
 
-* ``_flash_kernel`` → ``csrc/flash_fwd.cu`` (:func:`_flash_forward_cuda`);
+* ``_flash_kernel`` → ``csrc/flash_fwd.cu`` (:func:`_flash_forward_cuda`):
+  ``hvd_flash_fwd``, the Hopper kernel (TMA, wgmma), for bf16 and fp16;
+  ``hvd_flash_fwd_mma``, the ``mma.sync``/FMA kernel, for f32;
 * ``_flash_dq_kernel`` → ``csrc/flash_bwd.cu`` ``hvd_flash_bwd_dq``
   (:func:`_flash_bwd_dq_cuda`);
 * ``_flash_dkv_kernel`` → ``csrc/flash_bwd.cu`` ``hvd_flash_bwd_dkv``
@@ -243,12 +245,16 @@ def _check_cuda_inputs(q, k, v, n_heads, n_kv_heads):
 
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# C signatures of the kernels' entry points: pointers, then B, H, KVH, L, D,
-# dtype and causal as ints, then the softmax scale and the stream.
+# C signatures of the kernels' launch entries: pointers, then B, H, KVH, L,
+# D, dtype and causal as ints, then the softmax scale and the stream.
 _SIGNATURES = {
-    "flash_fwd": {"hvd_flash_fwd": 5},
+    "flash_fwd": {"hvd_flash_fwd": 5, "hvd_flash_fwd_mma": 5},
     "flash_bwd": {"hvd_flash_bwd_dq": 7, "hvd_flash_bwd_dkv": 8},
 }
+# The forward's entry by dtype: the Hopper kernel (wgmma, whose only 32-bit
+# path is TF32) takes the 16-bit types; f32 keeps the mma.sync/FMA kernel.
+_FWD_ENTRY = {torch.bfloat16: "hvd_flash_fwd", torch.float16: "hvd_flash_fwd",
+              torch.float32: "hvd_flash_fwd_mma"}
 
 
 def _kernel_lib(name: str) -> ctypes.CDLL:
@@ -263,6 +269,14 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
     lib.hvd_cuda_error_string.argtypes = [_INT]
     lib.hvd_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def fwd_smem_bytes() -> int:
+    """Dynamic shared memory of one block of the Hopper forward kernel."""
+    lib = _kernel_lib("flash_fwd")
+    lib.hvd_flash_fwd_smem_bytes.argtypes = []
+    lib.hvd_flash_fwd_smem_bytes.restype = _INT
+    return lib.hvd_flash_fwd_smem_bytes()
 
 
 def _launch(name: str, fn: str, tensors, q, n_heads, n_kv_heads, causal):
@@ -284,15 +298,16 @@ def _launch(name: str, fn: str, tensors, q, n_heads, n_kv_heads, causal):
 
 def _flash_forward_cuda(q, k, v, *, n_heads: int, n_kv_heads: int,
                         causal: bool):
-    """Launch ``csrc/flash_fwd.cu`` on the current stream.  Same contract
-    as :func:`_flash_forward_reference`; its own 64×64 tiles replace
-    ``block_q``/``block_k``."""
+    """Launch ``csrc/flash_fwd.cu`` on the current stream: the Hopper
+    kernel for bf16/fp16 (128×128 tiles), the ``mma.sync``/FMA kernel for
+    f32 (64×64).  Same contract as :func:`_flash_forward_reference`; the
+    kernel's tiles replace ``block_q``/``block_k``."""
     global launches
     _check_cuda_inputs(q, k, v, n_heads, n_kv_heads)
     bh, l, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, l, 1), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", "hvd_flash_fwd", (q, k, v, o, lse), q, n_heads,
+    _launch("flash_fwd", _FWD_ENTRY[q.dtype], (q, k, v, o, lse), q, n_heads,
             n_kv_heads, causal)
     launches += 1
     return o, lse

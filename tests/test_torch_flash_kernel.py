@@ -1,6 +1,6 @@
-"""The hand-written flash-attention kernel against its plain version, on the card.
+"""The hand-written flash-attention kernels against their plain versions, on the card.
 
-The CUDA kernel has no CPU mode, so these tests carry the ``cuda`` marker
+The CUDA kernels have no CPU mode, so these tests carry the ``cuda`` marker
 and skip without a GPU.  This file imports only torch and the port (no
 JAX), so it runs on a machine with the card and no JAX::
 
@@ -14,52 +14,86 @@ import torch
 
 from horovod_tpu_torch.parallel import flash_attention as tflash
 
+H, KVH, D = 32, 8, 128            # Llama-3-8B attention heads
+# o against the plain version at the kernel's own tiles, as in
+# chip_smoke.py: about two units in the last place of the storage dtype
+# relative to |o|; the LSE is f32 from exact products.
+O_TOL = {torch.bfloat16: (1e-2, 2 ** -7), torch.float16: (2e-3, 2 ** -9),
+         torch.float32: (1e-4, 1e-5)}
+LSE_TOL = 1e-3
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_kernel_matches_reference_on_card(causal):
-    """The hand-written kernel against its plain version on the card
-    (Llama-3-8B head widths, a ragged tail).  Tolerance as in
-    chip_smoke.py: two bf16 units in the last place relative to |o|."""
+
+def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    h, kvh, d, l = 32, 8, 128, 300
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn((2 * h, l, d), generator=g, device="cuda").bfloat16()
-    k = torch.randn((2 * kvh, l, d), generator=g, device="cuda").bfloat16()
-    v = torch.randn((2 * kvh, l, d), generator=g, device="cuda").bfloat16()
+
+
+def _qkv(b, l, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b * H, l, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((b * KVH, l, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b * KVH, l, D), generator=g, device="cuda").to(dtype)
+    return q, k, v
+
+
+def _check_forward(q, k, v, causal, block):
     before = tflash.launches
-    o, lse = tflash._flash_forward_cuda(q, k, v, n_heads=h, n_kv_heads=kvh,
+    o, lse = tflash._flash_forward_cuda(q, k, v, n_heads=H, n_kv_heads=KVH,
                                         causal=causal)
     torch.cuda.synchronize()
     assert tflash.launches == before + 1
     o_ref, lse_ref = tflash._flash_forward_reference(
-        q, k, v, n_heads=h, n_kv_heads=kvh, causal=causal, block_q=l,
-        block_k=l)
+        q, k, v, n_heads=H, n_kv_heads=KVH, causal=causal, block_q=block,
+        block_k=block)
+    atol, rtol = O_TOL[q.dtype]
     diff = (o.float() - o_ref.float()).abs()
-    assert float((diff - 2 ** -7 * o_ref.float().abs()).max()) <= 1e-2
-    assert float((lse - lse_ref).abs().max()) <= 1e-3
+    assert bool(torch.isfinite(o.float()).all())
+    assert float((diff - rtol * o_ref.float().abs()).max()) <= atol
+    assert float((lse - lse_ref).abs().max()) <= LSE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("l", [1, 127, 128, 129, 300, 1000])
+def test_flash_kernel_matches_reference_on_card(l, b, causal, dtype):
+    """The Hopper kernel (bf16/f16) against its plain version at its own
+    128 × 128 tiles: ragged tails within one 128-row tile (127, 129, 300,
+    1000), a single row, and B = 2 so a tail tile sits right before the
+    next head's rows in memory."""
+    _need_card()
+    _check_forward(*_qkv(b, l, dtype, seed=l + b), causal, block=128)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_bwd_kernels_match_reference_on_card(causal):
+def test_flash_kernel_f32_takes_the_mma_kernel_on_card(causal):
+    """f32 runs the mma.sync/FMA kernel (64 × 64 tiles): no TF32, so it
+    matches the plain version to f32 summation order."""
+    _need_card()
+    _check_forward(*_qkv(2, 300, torch.float32, seed=7), causal, block=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernels_match_reference_on_card(causal, dtype):
     """The dQ and dK/dV kernels against their plain versions on the card
     (Llama-3-8B head widths, GQA 32/8, a ragged tail), O and LSE from the
-    forward kernel.  Tolerance as in chip_smoke.py: 2**-6 of the largest
-    |grad| of each tensor (three bf16 roundings compound)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    h, kvh, d, l = 32, 8, 128, 300
-    g = torch.Generator(device="cuda").manual_seed(1)
-    q, do = (torch.randn((2 * h, l, d), generator=g, device="cuda").bfloat16()
-             for _ in range(2))
-    k, v = (torch.randn((2 * kvh, l, d), generator=g, device="cuda").bfloat16()
-            for _ in range(2))
-    kw = dict(n_heads=h, n_kv_heads=kvh, causal=causal)
+    Hopper forward kernel.  Tolerance as in chip_smoke.py: 2**-6 (bf16) or
+    2**-8 (f16) of the largest |grad| of each tensor (three roundings of
+    P and dS compound)."""
+    _need_card()
+    l = 300
+    rtol = 2 ** -6 if dtype == torch.bfloat16 else 2 ** -8
+    q, k, v = _qkv(2, l, dtype, seed=1)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    do = torch.randn((2 * H, l, D), generator=g, device="cuda").to(dtype)
+    kw = dict(n_heads=H, n_kv_heads=KVH, causal=causal)
     o, lse = tflash._flash_forward_cuda(q, k, v, **kw)
     delta = tflash._delta(o, do)
-    lse = lse.view(2 * h, l)
+    lse = lse.view(2 * H, l)
     before = (tflash.dq_launches, tflash.dkv_launches)
     dq = tflash._flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
     dk_h, dv_h = tflash._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
@@ -72,7 +106,7 @@ def test_flash_bwd_kernels_match_reference_on_card(causal):
                                                      **ref_kw)
     for got, ref in ((dq, dq_ref), (dk_h, dk_ref), (dv_h, dv_ref)):
         err = float((got.float() - ref.float()).abs().max())
-        assert err <= 2 ** -6 * float(ref.float().abs().max())
+        assert err <= rtol * float(ref.float().abs().max())
     # The full backward (delta, both kernels, the GQA group-sum) against
     # the plain backward.
     got = tflash._flash_backward_cuda(q, k, v, o, lse, do, **kw)
@@ -80,4 +114,4 @@ def test_flash_bwd_kernels_match_reference_on_card(causal):
     for a, b in zip(got, want):
         assert a.shape == b.shape
         err = float((a.float() - b.float()).abs().max())
-        assert err <= 2 ** -6 * float(b.float().abs().max())
+        assert err <= rtol * float(b.float().abs().max())
