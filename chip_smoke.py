@@ -21,10 +21,13 @@ Phases, one JSON line each; any failure exits non-zero before the result:
    bf16 inputs; the plain version's time; and PyTorch's
    ``scaled_dot_product_attention`` (only a yardstick: the port never
    makes it).
-4. ``kernel flash_bwd``: the dQ and dK/dV kernels against their plain
-   versions on the same inputs (O and LSE from the forward kernel, a random
-   dO), five cases; at the training shape their times, bounds and SDPA's
-   backward as the yardstick.
+4. ``kernel flash_bwd``: the dQ and dK/dV kernels (the Hopper kernels for
+   bf16/f16, the ``mma.sync`` kernels for f32) against their plain versions
+   on the same inputs (O and LSE from the forward kernel, a random dO),
+   with tails around the 64-row tiles; at the training shape each kernel's
+   device time, loop time and host time per call, ``prev_ms`` (the
+   ``mma.sync`` kernel on the same inputs), its bound, and SDPA's backward
+   in device time as the pair's yardstick.
 5. ``serve generate``: Llama-3-8B at full width (random weights from the
    seed), greedy ``generate`` over four ragged prompts; the flash kernel
    must launch once per layer of the prefill, and the prefill's logits
@@ -40,7 +43,8 @@ Phases, one JSON line each; any failure exits non-zero before the result:
    repeated batch of 4096 tokens, then a fifth under ``torch.profiler``
    (device time by kind of kernel, the device's idle share).  Each step
    must launch the forward kernel twice per layer (forward and remat
-   recompute) and each backward kernel once; the loss must fall; step 0's
+   recompute) and each backward kernel once, and the profile must show
+   the Hopper backward kernels; the loss must fall; step 0's
    gradients must agree with the blockwise recompute and the fused loss
    with the plain one.
 
@@ -223,18 +227,22 @@ def phase_build() -> None:
     seconds = time.perf_counter() - t0
     ptxas = [ln.strip() for log in _build.build_logs.values()
              for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln or "entry function" in ln]
+             if "registers" in ln or "spill" in ln or "entry function" in ln
+             or "warning" in ln]
     emit("build", ok=True, seconds=seconds, sources=_build.sources(),
          ptxas=ptxas)
     return {"seconds": seconds, "kernels": _ptxas_kernels(ptxas)}
 
 
 def _ptxas_kernels(lines) -> dict:
-    """``{mangled kernel name: {"registers": n, "spill_bytes": n}}`` (spill
-    stores) from ``nvcc -Xptxas -v``'s report."""
+    """``{mangled kernel name: {"registers": n, "spill_bytes": n,
+    "warnings": [...]}}`` (spill stores; ptxas's warnings that name the
+    kernel) from ``nvcc -Xptxas -v``'s report."""
     out: dict[str, dict] = {}
     name = None
     for ln in lines:
+        if "warning" in ln:
+            continue
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
             out[name] = {}
@@ -242,6 +250,8 @@ def _ptxas_kernels(lines) -> dict:
             out[name]["spill_bytes"] = int(spill.group(1))
         elif name and (used := re.search(r"Used (\d+) registers", ln)):
             out[name]["registers"] = int(used.group(1))
+    for name, v in out.items():
+        v["warnings"] = [ln for ln in lines if "warning" in ln and name in ln]
     return out
 
 
@@ -372,14 +382,22 @@ def _time_forward(q, k, v, b, l, causal, blk, tname) -> dict:
 # few units in the last place of the storage dtype relative to the largest
 # |grad|, the three roundings compounding over L keys or queries.
 BWD_RTOL = {"bf16": 2 ** -6, "f16": 2 ** -8, "f32": 1e-4}
+# Plus an absolute floor for gradients that cancel to f32 noise: where a
+# query sees one key (L = 1) softmax is constant, so dQ and dK are 0 and
+# dS = P∘(dP − Δ) holds only the rounding of dP and Δ in f32 (~1e-6).
+BWD_ATOL = 1e-4
+
+
+def _bwd_flops(b, h, l, d, causal, products) -> int:
+    pairs = l * (l + 1) // 2 if causal else l * l
+    return products * 2 * b * h * d * pairs
 
 
 def _bwd_bound(b, h, kvh, l, d, causal, elem, tname, products, outputs):
     """Least time for one backward kernel: ``products`` matrix products
     over the (causal) score matrix, against reading q, dO, k, v, LSE and Δ
     once and writing ``outputs`` [B·H, L, D] tensors once."""
-    pairs = l * (l + 1) // 2 if causal else l * l
-    flops = products * 2 * b * h * d * pairs
+    flops = _bwd_flops(b, h, l, d, causal, products)
     nbytes = ((2 + outputs) * b * h + 2 * b * kvh) * l * d * elem \
         + 2 * b * h * l * 4
     t_ops = flops / PEAK_FLOPS[tname]
@@ -396,12 +414,22 @@ def phase_kernel_bwd(seed: int) -> dict:
     H, KVH, D = ATTN_HEADS
     names = {torch.bfloat16: "bf16", torch.float16: "f16",
              torch.float32: "f32"}
-    cases = [  # (name, B, L, causal, dtype); the first is the training shape
+    # (name, B, L, causal, dtype); the first is the training shape.  The
+    # others put L on both sides of the 64-row tiles (1, 63, 64, 65, 129,
+    # 1000), with B = 2 where a ragged tail tile sits right before the next
+    # head's rows in memory.
+    cases = [
         (*TRAIN_SHAPE, torch.bfloat16),
-        ("causal_b1_l1000", 1, 1000, True, torch.bfloat16),
-        ("noncausal_b1_l512", 1, 512, False, torch.bfloat16),
+        ("causal_b2_l1", 2, 1, True, torch.bfloat16),
+        ("noncausal_b2_l63", 2, 63, False, torch.bfloat16),
+        ("causal_b1_l64", 1, 64, True, torch.bfloat16),
+        ("causal_b2_l65", 2, 65, True, torch.bfloat16),
+        ("noncausal_b2_l129_f16", 2, 129, False, torch.float16),
+        ("causal_b2_l1000", 2, 1000, True, torch.bfloat16),
+        ("noncausal_b1_l1000", 1, 1000, False, torch.bfloat16),
         ("causal_b1_l333_f16", 1, 333, True, torch.float16),
-        ("causal_b1_l200_f32", 1, 200, True, torch.float32),
+        ("causal_b2_l200_f32", 2, 200, True, torch.float32),
+        ("noncausal_b1_l65_f32", 1, 65, False, torch.float32),
     ]
     gen = torch.Generator(device=DEV).manual_seed(seed + 2)
     results = []
@@ -427,7 +455,8 @@ def phase_kernel_bwd(seed: int) -> dict:
         rtol = BWD_RTOL[tname]
         row = {"case": name, "dtype": tname, "B": b, "L": l, "H": H,
                "KVH": KVH, "D": D, "causal": causal,
-               "tol": f"{rtol} * max|grad|", "ok": True}
+               "entries": list(fa._BWD_ENTRY[dtype]),
+               "tol": f"{BWD_ATOL} + {rtol} * max|grad|", "ok": True}
         for gname, got, ref in (("dq", dq, dq_ref), ("dk", dk_h, dk_ref),
                                 ("dv", dv_h, dv_ref)):
             err = float((got.float() - ref.float()).abs().max())
@@ -435,25 +464,11 @@ def phase_kernel_bwd(seed: int) -> dict:
             finite = bool(torch.isfinite(got.float()).all())
             row[f"{gname}_max_abs_err"] = err
             row[f"{gname}_max_abs"] = scale
-            row["ok"] = row["ok"] and finite and err <= rtol * scale
-        if name == TRAIN_SHAPE[0]:
-            for kname, fn, plain, outputs, products in (
-                    ("dq", lambda: fa._flash_bwd_dq_cuda(
-                        q, k, v, do, lse, delta, **kw),
-                     lambda: fa._flash_bwd_dq_reference(
-                         q, k, v, do, lse, delta, **kw, **blk), 1, 3),
-                    ("dkv", lambda: fa._flash_bwd_dkv_cuda(
-                        q, k, v, do, lse, delta, **kw),
-                     lambda: fa._flash_bwd_dkv_reference(
-                         q, k, v, do, lse, delta, **kw, **blk), 2, 4)):
-                row[f"{kname}_ms"] = time_ms(fn)
-                row[f"{kname}_plain_ms"] = time_ms(plain, reps=3, inner=1,
-                                                   warmup=1)
-                row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = \
-                    _bwd_bound(b, H, KVH, l, D, causal, q.element_size(),
-                               tname, products, outputs)
-            row["library_ms"] = _sdpa_backward_ms(q, k, v, do, b, H, KVH, l,
-                                                  D, causal)
+            row["ok"] = (row["ok"] and finite
+                         and err <= BWD_ATOL + rtol * scale)
+        if row["ok"] and name == TRAIN_SHAPE[0]:
+            row["times"] = _time_backward(q, k, v, do, lse, delta, b, l,
+                                          causal, tname)
         results.append(row)
         emit("kernel flash_bwd", **row)
         del q, k, v, do, o, lse, delta, dq, dk_h, dv_h, dq_ref, dk_ref, dv_ref
@@ -463,10 +478,61 @@ def phase_kernel_bwd(seed: int) -> dict:
     return {"cases": results}
 
 
-def _sdpa_backward_ms(q, k, v, do, b, h, kvh, l, d, causal) -> float:
-    """The yardstick for the backward pair: the autograd grad of PyTorch's
-    ``scaled_dot_product_attention`` (KV expanded to H heads) minus its
-    forward.  The port never calls it."""
+def _time_backward(q, k, v, do, lse, delta, b, l, causal, tname) -> dict:
+    """Times of the two backward kernels at one shape, each as the forward
+    is timed: through its wrapper (device time, CUDA-event loop time, host
+    time per call), the earlier mma.sync kernel on the same inputs
+    (``prev``, device time), the plain version, the bound; and, for the
+    pair, SDPA's backward in device time (``library_ms``)."""
+    import torch
+
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    H, KVH, D = ATTN_HEADS
+    kw = dict(n_heads=H, n_kv_heads=KVH, causal=causal)
+    blk = dict(block_q=min(512, l), block_k=min(512, l))
+    prev_out = [torch.empty_like(q) for _ in range(3)]
+
+    def prev(entry, outs):
+        return lambda: fa._launch("flash_bwd", entry,
+                                  (q, k, v, do, lse, delta, *outs), q, H,
+                                  KVH, causal)
+
+    out = {}
+    for kname, fn, prev_fn, plain, outputs, products in (
+            ("dq", lambda: fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                 **kw),
+             prev("hvd_flash_bwd_dq_mma", prev_out[:1]),
+             lambda: fa._flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                **kw, **blk), 1, 3),
+            ("dkv", lambda: fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                   **kw),
+             prev("hvd_flash_bwd_dkv_mma", prev_out[1:]),
+             lambda: fa._flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                 **kw, **blk), 2, 4)):
+        r = {}
+        r["ms"], r["kernel_names"] = device_ms(fn)
+        r["wall_ms"] = time_ms(fn)
+        r["host_us_per_call"] = host_us(fn)
+        r["prev_ms"], r["prev_names"] = device_ms(prev_fn)
+        r["plain_ms"] = time_ms(plain, reps=3, inner=1, warmup=1)
+        r["bound_ms"], r["bound_by"] = _bwd_bound(
+            b, H, KVH, l, D, causal, q.element_size(), tname, products,
+            outputs)
+        r["tflops"] = _bwd_flops(b, H, l, D, causal, products) / r["ms"] / 1e9
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        r["speedup_vs_prev"] = r["prev_ms"] / r["ms"]
+        out[kname] = r
+    out["library_ms"], out["library_names"] = _sdpa_backward_ms(
+        q, k, v, do, b, H, KVH, l, D, causal)
+    return out
+
+
+def _sdpa_backward_ms(q, k, v, do, b, h, kvh, l, d, causal):
+    """The yardstick for the backward pair: device time of the autograd
+    grad of PyTorch's ``scaled_dot_product_attention`` (KV expanded to H
+    heads) minus that of its forward, with the backward's kernel names.
+    The port never calls it."""
     import torch
     import torch.nn.functional as F
 
@@ -486,7 +552,9 @@ def _sdpa_backward_ms(q, k, v, do, b, h, kvh, l, d, causal) -> float:
         out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
         torch.autograd.grad(out, (q4, k4, v4), do4)
 
-    return time_ms(fwd_bwd) - time_ms(fwd)
+    both, names = device_ms(fwd_bwd)
+    fwd_only, fwd_names = device_ms(fwd)
+    return both - fwd_only, [n for n in names if n not in fwd_names]
 
 
 def _model(n_layers: int, seed: int):
@@ -644,13 +712,18 @@ def _train_flops(cfg, tokens: int) -> float:
 # Kernel names → the layer they belong to, for the train step's breakdown.
 _KERNEL_KINDS = (
     ("flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel")),
-    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet")),
     ("optimizer (AdamW)", ("adam",)),
     ("nccl", ("nccl",)),
     ("memcpy/memset", ("memcpy", "memset")),
 )
+
+
+# The kernels the bf16 backward entries launch: the train step's profile
+# must show these and not the mma.sync kernels.
+BWD_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
 
 
 def _device_breakdown(prof, wall_s: float) -> dict:
@@ -686,6 +759,7 @@ def _device_breakdown(prof, wall_s: float) -> dict:
     busy_ms = busy_us / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return {
+        "flash_kernel_names": sorted(n for n in by_name if "flash" in n),
         "kernels": len(kernels), "wall_ms": wall_s * 1e3,
         "device_busy_ms": busy_ms,
         "device_idle_share": (1 - busy_ms / (wall_s * 1e3)
@@ -768,6 +842,8 @@ def phase_train(n_layers: int, seed: int) -> dict:
                          "flash_bwd_dq": fa.dq_launches,
                          "flash_bwd_dkv": fa.dkv_launches})
     step_s = statistics.median(seconds[1:4])
+    profiled = _device_breakdown(prof, seconds[4])
+    bwd_names = [n for n in profiled["flash_kernel_names"] if "flash_bwd" in n]
     flops = _train_flops(cfg, TRAIN_TOKENS)
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
             "flash_bwd_dkv": cfg.n_layers}
@@ -779,7 +855,7 @@ def phase_train(n_layers: int, seed: int) -> dict:
         "params": llama.num_params(cfg), "world_size": basics.size(),
         "losses": losses, "step_seconds": seconds,
         "step_s_median_2_4": step_s,
-        "profiled_step_5": _device_breakdown(prof, seconds[4]),
+        "profiled_step_5": profiled,
         "train_tokens_per_s": TRAIN_TOKENS / step_s,
         "model_flop_per_step": flops,
         "model_flop_share_of_989T": flops / step_s / PEAK_BF16,
@@ -793,6 +869,8 @@ def phase_train(n_layers: int, seed: int) -> dict:
     }
     checks = {
         "launches": all(p == want for p in per_step),
+        "bwd_kernels": all(any(k in n for n in bwd_names) for k in BWD_KERNELS)
+        and all(any(k in n for k in BWD_KERNELS) for n in bwd_names),
         "finite": all(np.isfinite(losses)),
         "decreasing": losses[-1] < losses[0],
         "grad_norm": abs(norm_k - norm_b) <= GRAD_NORM_RTOL * norm_b,
@@ -866,22 +944,31 @@ def main(argv=None) -> int:
     return 0
 
 
+def _ptx(build, kernel: str) -> dict:
+    """Registers and spill bytes of ``kernel`` (its largest instantiation)
+    and ptxas's warnings about it (C7512, C7519, C7520: serialized wgmma)
+    from the build's ``-Xptxas -v`` report."""
+    found = [v for k, v in build["kernels"].items() if kernel in k]
+    out = {key: max((p.get(key, 0) for p in found), default=None)
+           for key in ("registers", "spill_bytes")}
+    out["ptxas_warnings"] = sum(len(p["warnings"]) for p in found)
+    return out
+
+
 def _kernel_rows(build, kern, kern_bwd, gen, bat, train) -> list[dict]:
     """One row per kernel: its launches on the main paths (serving's
     generate and batcher, the train steps), its largest error over the bf16
     cases and its times at its main shape (the generate prefill for the
-    forward, the training shape for the backward pair).  The forward's
-    ``ms`` is device time; its row adds ``prev_ms`` (the earlier mma.sync
-    kernel, same run, same inputs), the build's registers and spills, its
-    shared memory, and the same times at the training shape."""
+    forward, the training shape for the backward pair).  ``ms`` is device
+    time; ``prev_ms`` the earlier mma.sync kernel (same run, same inputs);
+    with the build's registers and spills and the block's shared memory.
+    The forward's row adds the same times at the training shape."""
     from horovod_tpu_torch.parallel import flash_attention as fa
 
     fwd = kern["cases"][0]
     trn = next(c for c in kern["cases"] if c["case"] == TRAIN_SHAPE[0])
-    bwd = kern_bwd["cases"][0]
+    bwd = kern_bwd["cases"][0]["times"]
     src = "horovod_tpu/parallel/flash_attention.py"
-    ptx = [v for k, v in build["kernels"].items()
-           if "flash_fwd_wgmma_kernel" in k]
     times = ("ms", "wall_ms", "host_us_per_call", "prev_ms", "plain_ms",
              "library_ms", "bound_ms", "tflops", "share_of_bound")
     rows = [{
@@ -897,26 +984,30 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, train) -> list[dict]:
         "prev_ms": fwd["prev_ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"],
-        "registers": max((p.get("registers", 0) for p in ptx), default=None),
-        "spill_bytes": max((p.get("spill_bytes", 0) for p in ptx),
-                           default=None),
-        "smem_bytes": fa.fwd_smem_bytes(),
+        **_ptx(build, "flash_fwd_wgmma_kernel"),
+        "smem_bytes": fa.smem_bytes("flash_fwd", "hvd_flash_fwd"),
         "train_shape": {k: trn[k] for k in times},
     }]
-    for name, key, line, grads in (("flash_bwd_dq", "dq", 188, ("dq",)),
-                                   ("flash_bwd_dkv", "dkv", 229, ("dk", "dv"))):
+    for name, key, line, grads, kernel, entry in (
+            ("flash_bwd_dq", "dq", 188, ("dq",), BWD_KERNELS[0],
+             "hvd_flash_bwd_dq"),
+            ("flash_bwd_dkv", "dkv", 229, ("dk", "dv"), BWD_KERNELS[1],
+             "hvd_flash_bwd_dkv")):
+        t = bwd[key]
         rows.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "design": "cuda wgmma+tma",
             "source": "horovod_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"{src}:{line}",
             "launches": train["launches"][name],
             "max_abs_err": max(c[f"{g}_max_abs_err"] for c in kern_bwd["cases"]
                                for g in grads if c["dtype"] == "bf16"),
-            "ms": bwd[f"{key}_ms"], "plain_ms": bwd[f"{key}_plain_ms"],
-            "bound_ms": bwd[f"{key}_bound_ms"],
-            "bound_by": bwd[f"{key}_bound_by"],
+            **{k: t[k] for k in ("ms", "wall_ms", "host_us_per_call",
+                                 "prev_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "tflops", "share_of_bound")},
             # The backward pair's yardstick (SDPA's backward), on both rows.
             "library_ms": bwd["library_ms"],
+            **_ptx(build, kernel),
+            "smem_bytes": fa.smem_bytes("flash_bwd", entry),
         })
     return rows
 

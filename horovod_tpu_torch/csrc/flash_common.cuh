@@ -10,7 +10,8 @@
 // with 128-byte swizzle, encoded on the host through the driver entry point
 // (no -lcuda); TMA loads and stores; mbarrier init / expect-tx / arrive /
 // wait; the wgmma matrix descriptor; wgmma.mma_async m64n128k16 with A from
-// shared memory or from registers; setmaxnreg.  A 128-byte-swizzled tile is
+// shared memory or from registers, and m64n64k16 from shared memory;
+// setmaxnreg.  A 128-byte-swizzled tile is
 // stored as panels of 64 columns (128 bytes of a 16-bit dtype), each
 // [rows][128 B], 1024-byte aligned, as TMA writes it and wgmma reads it.
 
@@ -292,6 +293,16 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
   "%58, %59, %60, %61, %62, %63}"
+#define HVD_ACC32 HVD_ACC8(0), HVD_ACC8(8), HVD_ACC8(16), HVD_ACC8(24)
+#define HVD_REGS32                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+#define HVD_WGMMA_SS64(TY)                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "   \
+               HVD_REGS32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"                  \
+               : HVD_ACC32 : "l"(da), "l"(db), "r"(accumulate))
 #define HVD_WGMMA_SS(TY)                                                     \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                  \
                "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
@@ -333,10 +344,27 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
   }
 }
 
+// d[64x64] (+)= A[64x16] · B[16x64], both operands in shared memory and
+// K-major: the 64-key and 64-query tiles of the backward kernels (S = Q·Kᵀ,
+// dP = dO·Vᵀ, and their transposes Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ).  The
+// accumulator layout is wgmma_ss's with j = 0..7.
+template <typename T>
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    HVD_WGMMA_SS64("bf16");
+  } else {
+    HVD_WGMMA_SS64("f16");
+  }
+}
+
 #undef HVD_WGMMA_RS
 #undef HVD_WGMMA_SS
+#undef HVD_WGMMA_SS64
 #undef HVD_REGS64
+#undef HVD_REGS32
 #undef HVD_ACC64
+#undef HVD_ACC32
 #undef HVD_ACC8
 
 // Two f32 values rounded to the 16-bit dtype and packed (lo in the low half).

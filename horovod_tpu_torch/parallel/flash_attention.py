@@ -8,10 +8,12 @@ Port of ``horovod_tpu/parallel/flash_attention.py`` (``_flash_forward``,
 * ``_flash_kernel`` → ``csrc/flash_fwd.cu`` (:func:`_flash_forward_cuda`):
   ``hvd_flash_fwd``, the Hopper kernel (TMA, wgmma), for bf16 and fp16;
   ``hvd_flash_fwd_mma``, the ``mma.sync``/FMA kernel, for f32;
-* ``_flash_dq_kernel`` → ``csrc/flash_bwd.cu`` ``hvd_flash_bwd_dq``
-  (:func:`_flash_bwd_dq_cuda`);
-* ``_flash_dkv_kernel`` → ``csrc/flash_bwd.cu`` ``hvd_flash_bwd_dkv``
-  (:func:`_flash_bwd_dkv_cuda`).
+* ``_flash_dq_kernel`` → ``csrc/flash_bwd.cu`` (:func:`_flash_bwd_dq_cuda`):
+  ``hvd_flash_bwd_dq``, the Hopper kernel, for bf16 and fp16;
+  ``hvd_flash_bwd_dq_mma`` for f32;
+* ``_flash_dkv_kernel`` → ``csrc/flash_bwd.cu`` (:func:`_flash_bwd_dkv_cuda`):
+  ``hvd_flash_bwd_dkv`` for bf16 and fp16; ``hvd_flash_bwd_dkv_mma`` for
+  f32.
 
 :func:`_flash_forward_reference` and :func:`_flash_backward_reference` are
 the same computations in plain PyTorch (same block loops, causal block
@@ -249,12 +251,18 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # D, dtype and causal as ints, then the softmax scale and the stream.
 _SIGNATURES = {
     "flash_fwd": {"hvd_flash_fwd": 5, "hvd_flash_fwd_mma": 5},
-    "flash_bwd": {"hvd_flash_bwd_dq": 7, "hvd_flash_bwd_dkv": 8},
+    "flash_bwd": {"hvd_flash_bwd_dq": 7, "hvd_flash_bwd_dkv": 8,
+                  "hvd_flash_bwd_dq_mma": 7, "hvd_flash_bwd_dkv_mma": 8},
 }
-# The forward's entry by dtype: the Hopper kernel (wgmma, whose only 32-bit
-# path is TF32) takes the 16-bit types; f32 keeps the mma.sync/FMA kernel.
+# Entries by dtype: the Hopper kernels (wgmma, whose only 32-bit path is
+# TF32) take the 16-bit types; f32 keeps the mma.sync/FMA kernels.
 _FWD_ENTRY = {torch.bfloat16: "hvd_flash_fwd", torch.float16: "hvd_flash_fwd",
               torch.float32: "hvd_flash_fwd_mma"}
+_BWD_ENTRY = {  # dtype -> (dQ entry, dK/dV entry)
+    torch.bfloat16: ("hvd_flash_bwd_dq", "hvd_flash_bwd_dkv"),
+    torch.float16: ("hvd_flash_bwd_dq", "hvd_flash_bwd_dkv"),
+    torch.float32: ("hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma"),
+}
 
 
 def _kernel_lib(name: str) -> ctypes.CDLL:
@@ -271,12 +279,12 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def fwd_smem_bytes() -> int:
-    """Dynamic shared memory of one block of the Hopper forward kernel."""
-    lib = _kernel_lib("flash_fwd")
-    lib.hvd_flash_fwd_smem_bytes.argtypes = []
-    lib.hvd_flash_fwd_smem_bytes.restype = _INT
-    return lib.hvd_flash_fwd_smem_bytes()
+def smem_bytes(name: str, entry: str) -> int:
+    """Dynamic shared memory of one block of a Hopper kernel, from its
+    library's ``<entry>_smem_bytes()``."""
+    f = getattr(_kernel_lib(name), f"{entry}_smem_bytes")
+    f.argtypes, f.restype = [], _INT
+    return f()
 
 
 def _launch(name: str, fn: str, tensors, q, n_heads, n_kv_heads, causal):
@@ -330,26 +338,27 @@ def _check_bwd_inputs(q, k, v, do, lse, delta, n_heads, n_kv_heads):
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, n_heads: int,
                        n_kv_heads: int, causal: bool):
-    """Launch ``hvd_flash_bwd_dq`` (``csrc/flash_bwd.cu``): dQ [B·H, L, D]
-    in q's dtype from q, k, v, dO, the forward's LSE and Δ ([B·H, L] f32)."""
+    """Launch the dQ kernel of ``csrc/flash_bwd.cu`` for q's dtype
+    (``_BWD_ENTRY``): dQ [B·H, L, D] in q's dtype from q, k, v, dO, the
+    forward's LSE and Δ ([B·H, L] f32)."""
     global dq_launches
     _check_bwd_inputs(q, k, v, do, lse, delta, n_heads, n_kv_heads)
     dq = torch.empty_like(q)
-    _launch("flash_bwd", "hvd_flash_bwd_dq", (q, k, v, do, lse, delta, dq), q,
-            n_heads, n_kv_heads, causal)
+    _launch("flash_bwd", _BWD_ENTRY[q.dtype][0],
+            (q, k, v, do, lse, delta, dq), q, n_heads, n_kv_heads, causal)
     dq_launches += 1
     return dq
 
 
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, n_heads: int,
                         n_kv_heads: int, causal: bool):
-    """Launch ``hvd_flash_bwd_dkv`` (``csrc/flash_bwd.cu``): dK and dV per
-    *query* head, ``([B·H, L, D], [B·H, L, D])`` in k's dtype, for
-    :func:`_group_sum`."""
+    """Launch the dK/dV kernel of ``csrc/flash_bwd.cu`` for q's dtype
+    (``_BWD_ENTRY``): dK and dV per *query* head,
+    ``([B·H, L, D], [B·H, L, D])`` in k's dtype, for :func:`_group_sum`."""
     global dkv_launches
     _check_bwd_inputs(q, k, v, do, lse, delta, n_heads, n_kv_heads)
     dk_h, dv_h = torch.empty_like(q), torch.empty_like(q)
-    _launch("flash_bwd", "hvd_flash_bwd_dkv",
+    _launch("flash_bwd", _BWD_ENTRY[q.dtype][1],
             (q, k, v, do, lse, delta, dk_h, dv_h), q, n_heads, n_kv_heads,
             causal)
     dkv_launches += 1

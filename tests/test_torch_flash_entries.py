@@ -1,5 +1,5 @@
-"""The forward kernel's C entries and routing, and its plain version at the
-Hopper kernel's tiles, on the CPU.
+"""The kernels' C entries and routing, and their plain versions at the
+Hopper kernels' tiles, on the CPU.
 
 * Every launch entry of ``horovod_tpu_torch/csrc/*.cu`` (an ``extern "C"``
   function that takes the stream) has a ``_SIGNATURES`` row with the same
@@ -7,10 +7,14 @@ Hopper kernel's tiles, on the CPU.
   declares after them: a mismatch would make ``ctypes`` cut or shift the
   arguments on the card.
 * ``_flash_forward_cuda`` sends bf16/fp16 to ``hvd_flash_fwd`` (the Hopper
-  kernel) and f32 to ``hvd_flash_fwd_mma``, with ``_launch`` replaced.
+  kernel) and f32 to ``hvd_flash_fwd_mma``; the backward wrappers send
+  bf16/fp16 to ``hvd_flash_bwd_dq``/``hvd_flash_bwd_dkv`` and f32 to their
+  ``_mma`` entries; with ``_launch`` replaced.
 * The plain forward blocked 128 × 128, as the Hopper kernel tiles, against
   the JAX ``_flash_forward`` (the Pallas kernel in interpret mode) at the
-  same blocks: ragged L, GQA with H=4, KVH=2.
+  same blocks: ragged L, GQA with H=4, KVH=2.  The plain dQ and dK/dV
+  blocked 64 × 64, as the Hopper backward kernels tile, against the JAX
+  ``_flash_backward`` the same way, at the kernels' head width D = 128.
 """
 
 from __future__ import annotations
@@ -54,7 +58,9 @@ def test_every_launch_entry_has_a_signature_row():
 
 @pytest.mark.parametrize("lib, entry", [
     ("flash_fwd", "hvd_flash_fwd"), ("flash_fwd", "hvd_flash_fwd_mma"),
-    ("flash_bwd", "hvd_flash_bwd_dq"), ("flash_bwd", "hvd_flash_bwd_dkv")])
+    ("flash_bwd", "hvd_flash_bwd_dq"), ("flash_bwd", "hvd_flash_bwd_dkv"),
+    ("flash_bwd", "hvd_flash_bwd_dq_mma"),
+    ("flash_bwd", "hvd_flash_bwd_dkv_mma")])
 def test_signature_row_matches_the_source(lib, entry):
     params = _launch_entries()[(lib, entry)][:-1]       # the stream last
     pointers = [p for p in params if "*" in p]
@@ -88,6 +94,37 @@ def test_forward_routes_by_dtype(monkeypatch, dtype, entry):
     assert lse.shape == (8, 24, 1) and lse.dtype == torch.float32
 
 
+@pytest.mark.parametrize("dtype, entries", [
+    (torch.bfloat16, ("hvd_flash_bwd_dq", "hvd_flash_bwd_dkv")),
+    (torch.float16, ("hvd_flash_bwd_dq", "hvd_flash_bwd_dkv")),
+    (torch.float32, ("hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma"))])
+def test_backward_routes_by_dtype(monkeypatch, dtype, entries):
+    """Through the wrappers the backward calls, 16-bit tensors reach the
+    Hopper dQ and dK/dV kernels and f32 the mma.sync kernels; each wrapper
+    counts one launch and returns its outputs' contract (dQ like q; dK/dV
+    per query head)."""
+    calls = []
+    monkeypatch.setattr(tflash, "_check_bwd_inputs", lambda *a: None)
+    monkeypatch.setattr(
+        tflash, "_launch",
+        lambda name, fn, tensors, q, h, kvh, causal: calls.append(
+            (name, fn, len(tensors), h, kvh, causal)))
+    monkeypatch.setattr(tflash, "dq_launches", 0)
+    monkeypatch.setattr(tflash, "dkv_launches", 0)
+    q = do = torch.zeros((2 * 4, 24, 128), dtype=dtype)
+    k = v = torch.zeros((2 * 2, 24, 128), dtype=dtype)
+    lse = delta = torch.zeros((8, 24), dtype=torch.float32)
+    kw = dict(n_heads=4, n_kv_heads=2, causal=False)
+    dq = tflash._flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+    dk_h, dv_h = tflash._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    assert calls == [("flash_bwd", entries[0], 7, 4, 2, False),
+                     ("flash_bwd", entries[1], 8, 4, 2, False)]
+    assert [tflash._SIGNATURES["flash_bwd"][e] for e in entries] == [7, 8]
+    assert (tflash.dq_launches, tflash.dkv_launches) == (1, 1)
+    for t in (dq, dk_h, dv_h):
+        assert t.shape == q.shape and t.dtype == dtype
+
+
 # Tolerances as in test_torch_flash_attention.py: f32 differs only in the
 # products' summation order; bf16 outputs by one bf16 unit at a tie of P's
 # rounding; the LSE is f32 from the same f32 scores.
@@ -119,3 +156,55 @@ def test_plain_forward_at_kernel_tiles_matches_jax(l, causal, dtype):
                                np.asarray(jo, np.float32), atol=atol)
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse)[:, :l],
                                atol=LSE_ATOL)
+
+
+# The plain backward against JAX's, relative to the largest |grad| of each
+# tensor.  f32: the same block loops and the same f32 P and dS; only the
+# products' summation order differs (measured below 4e-7).  bf16: P and dS
+# are rounded to bf16 from f32 values that differ in summation order, so a
+# tie may round the other way (one bf16 unit, 2**-8 relative, in one
+# element of a sum over at most L terms), and dK/dV are summed over the GQA
+# group in bf16 after that; measured below 7e-4.
+BWD_F32_RTOL, BWD_BF16_RTOL = 1e-5, 2 ** -8
+
+
+@pytest.mark.parametrize("b, l, causal, dtype", [
+    (1, 100, True, "float32"), (1, 100, False, "float32"),
+    (1, 130, True, "bfloat16"), (2, 65, False, "bfloat16")])
+def test_plain_backward_at_kernel_tiles_matches_jax(b, l, causal, dtype):
+    """64-row query and 64-key blocks, the tail block ragged (100 = 64 + 36,
+    130 = 2·64 + 2, 65 = 64 + 1), D = 128, GQA with H=4, KVH=2: the plain
+    dQ and the group-summed plain dK/dV equal JAX's ``_flash_backward`` at
+    the same blocks, on the same q/k/v/dO and JAX's own O and LSE."""
+    h, kvh, d = 4, 2, 128
+    rng = np.random.RandomState(l + b)
+    q = rng.randn(b * h, l, d).astype(np.float32)
+    k = rng.randn(b * kvh, l, d).astype(np.float32)
+    v = rng.randn(b * kvh, l, d).astype(np.float32)
+    g = rng.randn(b * h, l, d).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jkw = dict(n_heads=h, n_kv_heads=kvh, causal=causal, block_q=64,
+               block_k=64, interpret=True)
+    jq, jk, jv, jg = (jnp.asarray(a).astype(jdt) for a in (q, k, v, g))
+    jo, jlse = jflash._flash_forward(jq, jk, jv, **jkw)
+    want = jflash._flash_backward(jq, jk, jv, jo, jlse, jg, **jkw)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(tdt)
+
+    lse = torch.from_numpy(np.array(jlse, np.float32)[:, :l, 0].copy())
+    delta = tflash._delta(t(jo), t(g))
+    tkw = dict(n_heads=h, n_kv_heads=kvh, causal=causal, block_q=64,
+               block_k=64)
+    dq = tflash._flash_bwd_dq_reference(t(q), t(k), t(v), t(g), lse, delta,
+                                        **tkw)
+    dk_h, dv_h = tflash._flash_bwd_dkv_reference(t(q), t(k), t(v), t(g), lse,
+                                                 delta, **tkw)
+    got = (dq, tflash._group_sum(dk_h, h, kvh), tflash._group_sum(dv_h, h, kvh))
+    rtol = BWD_F32_RTOL if dtype == "float32" else BWD_BF16_RTOL
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(w, np.float32)
+        assert a.dtype == tdt and tuple(a.shape) == w.shape, name
+        np.testing.assert_allclose(a.float().numpy(), w,
+                                   atol=rtol * float(np.abs(w).max()),
+                                   err_msg=name)
