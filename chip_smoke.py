@@ -41,16 +41,46 @@ Phases, one JSON line each; any failure exits non-zero before the result:
    ``DistributedOptimizer(AdamW)`` with clipping at 1.0 after the
    gradient allreduce, and ``make_train_step``: four timed steps on one
    repeated batch of 4096 tokens, then a fifth under ``torch.profiler``
-   (device time by kind of kernel, the device's idle share).  Each step
+   (device time by kind of kernel, the device's idle share; taken again,
+   at most twice, when the profiler dropped the backward kernels).  Each step
    must launch the forward kernel twice per layer (forward and remat
    recompute) and each backward kernel once, and the profile must show
    the Hopper backward kernels; the loss must fall; step 0's
    gradients must agree with the blockwise recompute and the fused loss
    with the plain one.
 
-Then a ``{"kernels": [...]}`` line and, last, the result line
-``{"ok": true, "device": {...}}``.  ``--n-layers`` and ``--train-layers``
-cut depth, never width.
+8. ``kernel d64`` (run right after ``kernel flash_bwd``): the three
+   kernels at head dim 64, the ViT's, where every dtype takes the
+   ``mma.sync`` kernels: the ViT-B/16 shape (B=64, L=196, 12 heads,
+   non-causal) in bf16, f16 and f32, a causal case and tails, each held
+   against its plain version; at the ViT shape the times, bounds and SDPA.
+9. ``train resnet101`` (``bench.py _bench_resnet``): ResNet-101 at full
+   depth, batch 64 at 224 × 224 from ``synthetic_imagenet``, bf16 compute
+   with f32 parameters and BN, ``SGD(0.01, momentum=0.9)`` through
+   ``basics.init``, ``broadcast_parameters``, ``broadcast_optimizer_state``,
+   ``DistributedOptimizer`` and ``make_train_step``: two warm-up steps,
+   eight timed, one profiled; images/s and the model-FLOP share (FLOP from
+   ``torch.utils.flop_counter``); losses finite and falling, BN running
+   statistics moved.
+10. ``train vit_b16`` (``bench.py _bench_vit`` with the flash kernels):
+    ViT-B/16, bf16, ``attn_impl="flash"``, batch 64 at 224,
+    ``AdamW(1e-3, weight_decay=1e-4)``, the same wrapper; each step must
+    launch the forward, dQ and dK/dV kernels 12 times; step 0's logits and
+    gradients are held against dense attention and the blockwise backward.
+11. ``train vgg16`` (BASELINE config 4, with its fusion buckets and
+    allreduce bytes per step) and ``train inception_v3`` (299 × 299): batch
+    64, one warm-up and two timed steps each.
+12. ``fit mnist`` (BASELINE config 1): ``MnistConvNet`` through ``fit``,
+    ``ShardedLoader`` over ``synthetic_mnist`` and the broadcast,
+    metric-average and warm-up callbacks, two epochs; the loss must fall.
+
+The training phases share one process group, shut down after the last.
+Then a ``{"kernels": [...]}`` line (each kernel at head dims 128 and 64)
+and, last, the result line ``{"ok": true, "device": {...}}``.  A failed
+phase prints its JSON line with ``"ok": false`` and its traceback on
+standard error, and the run exits 1.
+``--n-layers`` and ``--train-layers`` cut depth, never width; the vision
+paths run at full depth.
 """
 
 from __future__ import annotations
@@ -59,12 +89,14 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = "cuda"
@@ -137,13 +169,16 @@ def device_ms(fn, n: int = 20, tries: int = 3) -> tuple[float, list[str]]:
     """Device time per call of ``fn`` from ``torch.profiler`` over ``n``
     calls: for each kernel name, the median of its own device intervals
     times how many it launches per call, summed; and the kernels' names.
-    The median keeps the number right when the profiler drops some events
-    (seen on the card); a session that records none is tried again."""
+    The profiler drops events now and then (seen on the card): a session
+    where some kernel's count is not a whole multiple of ``n`` is tried
+    again, and if every session lost some, the last one whose time is not 0
+    stands (the median keeps each kernel's time right)."""
     import torch
     from torch.autograd import DeviceType
 
     fn()
     sync()
+    partial = None
     for _ in range(tries):
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
@@ -156,10 +191,15 @@ def device_ms(fn, n: int = 20, tries: int = 3) -> tuple[float, list[str]]:
             if (e.device_type == DeviceType.CUDA
                     and not getattr(e, "is_user_annotation", False)):
                 by_name.setdefault(e.name, []).append(e.device_time_total)
-        if by_name:
-            us = sum(statistics.median(d) * round(len(d) / n)
-                     for d in by_name.values())
-            return us / 1e3, sorted(name[:80] for name in by_name)
+        us = sum(statistics.median(d) * round(len(d) / n)
+                 for d in by_name.values())
+        if us <= 0:
+            continue
+        partial = us / 1e3, sorted(name[:80] for name in by_name)
+        if all(len(d) % n == 0 for d in by_name.values()):
+            return partial
+    if partial is not None:
+        return partial
     raise PhaseError("torch.profiler recorded no device time")
 
 
@@ -309,7 +349,7 @@ def phase_kernel(seed: int) -> dict:
         ok = finite and o_excess <= atol and lse_err <= LSE_TOL
         row = {"case": name, "dtype": tname, "B": b, "L": l, "H": H,
                "KVH": KVH, "D": D, "causal": causal,
-               "entry": fa._FWD_ENTRY[dtype], "ref_block": blk,
+               "entry": fa._FWD_ENTRY[dtype, D], "ref_block": blk,
                "o_max_abs_err": o_err, "o_tol": f"{atol} + {rtol}*|o|",
                "o_excess_over_tol": o_excess, "lse_max_abs_err": lse_err,
                "lse_tol": LSE_TOL, "ok": ok}
@@ -323,16 +363,18 @@ def phase_kernel(seed: int) -> dict:
     return {"cases": results}
 
 
-def _time_forward(q, k, v, b, l, causal, blk, tname) -> dict:
+def _time_forward(q, k, v, b, l, causal, blk, tname,
+                  heads=ATTN_HEADS) -> dict:
     """Times of one forward case: the kernel through its wrapper (device
     time, CUDA-event loop time, host time per call), the earlier mma.sync
-    kernel on the same inputs (``prev``), the plain version and SDPA."""
+    kernel on the same inputs (``prev``, where the wrapper takes another
+    kernel), the plain version and SDPA."""
     import torch
     import torch.nn.functional as F
 
     from horovod_tpu_torch.parallel import flash_attention as fa
 
-    H, KVH, D = ATTN_HEADS
+    H, KVH, D = heads
     kw = dict(n_heads=H, n_kv_heads=KVH, causal=causal)
 
     def kernel():
@@ -357,7 +399,7 @@ def _time_forward(q, k, v, b, l, causal, blk, tname) -> dict:
     out["ms"], out["kernel_names"] = device_ms(kernel)
     out["wall_ms"] = time_ms(kernel)
     out["host_us_per_call"] = host_us(kernel)
-    if q.dtype != torch.float32:
+    if fa._FWD_ENTRY[q.dtype, D] != "hvd_flash_fwd_mma":
         out["prev_ms"], out["prev_names"] = device_ms(prev)
         out["prev_wall_ms"] = time_ms(prev)
     out["library_ms"], out["library_names"] = device_ms(sdpa)
@@ -455,7 +497,7 @@ def phase_kernel_bwd(seed: int) -> dict:
         rtol = BWD_RTOL[tname]
         row = {"case": name, "dtype": tname, "B": b, "L": l, "H": H,
                "KVH": KVH, "D": D, "causal": causal,
-               "entries": list(fa._BWD_ENTRY[dtype]),
+               "entries": list(fa._BWD_ENTRY[dtype, D]),
                "tol": f"{BWD_ATOL} + {rtol} * max|grad|", "ok": True}
         for gname, got, ref in (("dq", dq, dq_ref), ("dk", dk_h, dk_ref),
                                 ("dv", dv_h, dv_ref)):
@@ -478,17 +520,20 @@ def phase_kernel_bwd(seed: int) -> dict:
     return {"cases": results}
 
 
-def _time_backward(q, k, v, do, lse, delta, b, l, causal, tname) -> dict:
+def _time_backward(q, k, v, do, lse, delta, b, l, causal, tname,
+                   heads=ATTN_HEADS) -> dict:
     """Times of the two backward kernels at one shape, each as the forward
     is timed: through its wrapper (device time, CUDA-event loop time, host
     time per call), the earlier mma.sync kernel on the same inputs
     (``prev``, device time), the plain version, the bound; and, for the
-    pair, SDPA's backward in device time (``library_ms``)."""
+    pair, SDPA's backward in device time (``library_ms``).  ``prev`` only
+    where the wrappers take the Hopper kernels."""
     import torch
 
     from horovod_tpu_torch.parallel import flash_attention as fa
 
-    H, KVH, D = ATTN_HEADS
+    H, KVH, D = heads
+    hopper = fa._BWD_ENTRY[q.dtype, D][0] != "hvd_flash_bwd_dq_mma"
     kw = dict(n_heads=H, n_kv_heads=KVH, causal=causal)
     blk = dict(block_q=min(512, l), block_k=min(512, l))
     prev_out = [torch.empty_like(q) for _ in range(3)]
@@ -514,14 +559,15 @@ def _time_backward(q, k, v, do, lse, delta, b, l, causal, tname) -> dict:
         r["ms"], r["kernel_names"] = device_ms(fn)
         r["wall_ms"] = time_ms(fn)
         r["host_us_per_call"] = host_us(fn)
-        r["prev_ms"], r["prev_names"] = device_ms(prev_fn)
+        if hopper:
+            r["prev_ms"], r["prev_names"] = device_ms(prev_fn)
+            r["speedup_vs_prev"] = r["prev_ms"] / r["ms"]
         r["plain_ms"] = time_ms(plain, reps=3, inner=1, warmup=1)
         r["bound_ms"], r["bound_by"] = _bwd_bound(
             b, H, KVH, l, D, causal, q.element_size(), tname, products,
             outputs)
         r["tflops"] = _bwd_flops(b, H, l, D, causal, products) / r["ms"] / 1e9
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
-        r["speedup_vs_prev"] = r["prev_ms"] / r["ms"]
         out[kname] = r
     out["library_ms"], out["library_names"] = _sdpa_backward_ms(
         q, k, v, do, b, H, KVH, l, D, causal)
@@ -555,6 +601,99 @@ def _sdpa_backward_ms(q, k, v, do, b, h, kvh, l, d, causal):
     both, names = device_ms(fwd_bwd)
     fwd_only, fwd_names = device_ms(fwd)
     return both - fwd_only, [n for n in names if n not in fwd_names]
+
+
+# ViT-B/16 attention at 224 px: 12 heads of 64 over 196 patches, no GQA,
+# bidirectional; ``bench.py _bench_vit``'s batch of 64.
+VIT_HEADS = (12, 12, 64)
+VIT_SHAPE = ("vit_b16_b64_l196", 64, 196, False)
+
+
+def phase_kernel_d64(seed: int) -> dict:
+    """The three kernels at head dim 64, where every dtype takes the
+    mma.sync kernels (64 × 64 tiles): forward, dQ and dK/dV against their
+    plain versions (the forward blocked 64 × 64 as the kernel tiles) with
+    the D = 128 phases' tolerances, at the ViT-B/16 shape in bf16, f16 and
+    f32, one causal case and tails L ∈ {1, 63, 65, 1000}; at the ViT shape
+    in bf16 the kernels' times, bounds and SDPA's forward and backward."""
+    import torch
+
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    H, KVH, D = VIT_HEADS
+    names = {torch.bfloat16: "bf16", torch.float16: "f16",
+             torch.float32: "f32"}
+    cases = [(*VIT_SHAPE, torch.bfloat16), (*VIT_SHAPE, torch.float16),
+             (*VIT_SHAPE, torch.float32),
+             ("causal_b2_l333", 2, 333, True, torch.bfloat16),
+             ("noncausal_b2_l1", 2, 1, False, torch.bfloat16),
+             ("noncausal_b2_l63", 2, 63, False, torch.bfloat16),
+             ("causal_b2_l65", 2, 65, True, torch.float16),
+             ("noncausal_b1_l1000", 1, 1000, False, torch.bfloat16)]
+    gen = torch.Generator(device=DEV).manual_seed(seed + 4)
+    fwd_rows, bwd_rows = [], []
+    for name, b, l, causal, dtype in cases:
+        tname = names[dtype]
+        q, k, v, do = (torch.randn((b * h, l, D), generator=gen,
+                                   device=DEV).to(dtype)
+                       for h in (H, KVH, KVH, H))
+        kw = dict(n_heads=H, n_kv_heads=KVH, causal=causal)
+        o, lse = fa._flash_forward_cuda(q, k, v, **kw)
+        sync()
+        o_ref, lse_ref = fa._flash_forward_reference(q, k, v, **kw,
+                                                     block_q=64, block_k=64)
+        atol, rtol = O_TOL[tname]
+        diff = (o.float() - o_ref.float()).abs()
+        frow = {"case": name, "dtype": tname, "B": b, "L": l, "H": H,
+                "KVH": KVH, "D": D, "causal": causal,
+                "entry": fa._FWD_ENTRY[dtype, D], "ref_block": 64,
+                "o_max_abs_err": float(diff.max()),
+                "o_tol": f"{atol} + {rtol}*|o|",
+                "o_excess_over_tol": float(
+                    (diff - rtol * o_ref.float().abs()).max()),
+                "lse_max_abs_err": float((lse - lse_ref).abs().max()),
+                "lse_tol": LSE_TOL}
+        frow["ok"] = bool(torch.isfinite(o.float()).all()) and (
+            frow["o_excess_over_tol"] <= atol
+            and frow["lse_max_abs_err"] <= LSE_TOL)
+        lse = lse.view(b * H, l)
+        delta = fa._delta(o, do)
+        dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+        dk_h, dv_h = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+        sync()
+        blk = dict(block_q=min(512, l), block_k=min(512, l))
+        refs = (fa._flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw,
+                                           **blk),
+                *fa._flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw,
+                                             **blk))
+        brow = {"case": name, "dtype": tname, "B": b, "L": l, "H": H,
+                "KVH": KVH, "D": D, "causal": causal,
+                "entries": list(fa._BWD_ENTRY[dtype, D]),
+                "tol": f"{BWD_ATOL} + {BWD_RTOL[tname]} * max|grad|",
+                "ok": True}
+        for gname, got, ref in zip(("dq", "dk", "dv"), (dq, dk_h, dv_h),
+                                   refs):
+            err = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            brow[f"{gname}_max_abs_err"] = err
+            brow[f"{gname}_max_abs"] = scale
+            brow["ok"] = (brow["ok"] and bool(torch.isfinite(got.float()).all())
+                          and err <= BWD_ATOL + BWD_RTOL[tname] * scale)
+        if frow["ok"] and brow["ok"] and (name, dtype) == (
+                VIT_SHAPE[0], torch.bfloat16):
+            frow.update(_time_forward(q, k, v, b, l, causal, 64, tname,
+                                      heads=VIT_HEADS))
+            brow["times"] = _time_backward(q, k, v, do, lse, delta, b, l,
+                                           causal, tname, heads=VIT_HEADS)
+        fwd_rows.append(frow)
+        bwd_rows.append(brow)
+        emit("kernel flash_fwd d64", **frow)
+        emit("kernel flash_bwd d64", **brow)
+        del q, k, v, do, o, lse, delta, dq, dk_h, dv_h, o_ref, lse_ref, refs
+        if not (frow["ok"] and brow["ok"]):
+            raise PhaseError(f"the D = 64 kernels disagree with their plain "
+                             f"versions on {name} {tname}")
+    return {"fwd": fwd_rows, "bwd": bwd_rows}
 
 
 def _model(n_layers: int, seed: int):
@@ -712,6 +851,9 @@ def _train_flops(cfg, tokens: int) -> float:
 # Kernel names → the layer they belong to, for the train step's breakdown.
 _KERNEL_KINDS = (
     ("flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel")),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("conv (cuDNN)", ("fprop", "dgrad", "wgrad", "implicit_convolve",
+                      "winograd", "cudnn")),
     ("flash_bwd_dq", ("flash_bwd_dq_",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv_",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet")),
@@ -826,10 +968,14 @@ def phase_train(n_layers: int, seed: int) -> dict:
     sync()
     torch.cuda.reset_peak_memory_stats()
     losses, seconds, per_step = [], [], []
-    for i in range(5):          # four timed steps, then one under the profiler
+    # Four timed steps, then one under the profiler; the profiled step is
+    # taken again (at most twice) when the profiler dropped the backward
+    # kernels' events, so the route check reads a whole profile.
+    for i in range(7):
+        profiling = i >= 4
         prof = (torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) if i == 4
+            torch.profiler.ProfilerActivity.CUDA]) if profiling
             else contextlib.nullcontext())
         fa.launches = fa.dq_launches = fa.dkv_launches = 0
         with prof:
@@ -841,9 +987,13 @@ def phase_train(n_layers: int, seed: int) -> dict:
         per_step.append({"flash_fwd": fa.launches,
                          "flash_bwd_dq": fa.dq_launches,
                          "flash_bwd_dkv": fa.dkv_launches})
+        if profiling:
+            profiled = _device_breakdown(prof, seconds[-1])
+            bwd_names = [n for n in profiled["flash_kernel_names"]
+                         if "flash_bwd" in n]
+            if len(bwd_names) >= len(BWD_KERNELS):
+                break
     step_s = statistics.median(seconds[1:4])
-    profiled = _device_breakdown(prof, seconds[4])
-    bwd_names = [n for n in profiled["flash_kernel_names"] if "flash_bwd" in n]
     flops = _train_flops(cfg, TRAIN_TOKENS)
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
             "flash_bwd_dkv": cfg.n_layers}
@@ -881,11 +1031,347 @@ def phase_train(n_layers: int, seed: int) -> dict:
     out["checks"] = checks
     out["ok"] = all(checks.values())
     emit("train", **out)
-    basics.shutdown()
     if not out["ok"]:
         raise PhaseError(f"train failed its checks: "
                          f"{[k for k, v in checks.items() if not v]}")
     return {"launches": {k: sum(p[k] for p in per_step) for k in want}}
+
+
+# -- vision paths ------------------------------------------------------------
+
+VISION_BATCH = 64        # bench.py _bench_resnet / _bench_vit, per card
+# ViT-B/16 step 0: logits with the kernels against attn_impl="dense" on the
+# same weights, relative to the largest |logit|.  Both round the attention
+# output to bf16; dense also rounds the scores to bf16 before the softmax,
+# the kernel rounds P; twelve layers' residual stream carries it (the
+# Llama prefill check's bound).
+VIT_LOGIT_RTOL = 5e-2
+# ViT-B/16 step 0's gradients with the kernels against the blockwise
+# recompute and against dense attention: the Llama train check's bounds.
+# Each attention backward rounds P and dS to bf16 in another place (the
+# kernels at each 64 × 64 tile, dense autograd at its bf16 products, the
+# blockwise recompute not at all), unbiased at 2**-8 relative per element,
+# then twelve layers' backward carry it.
+VIT_GRAD_NORM_RTOL = 2e-2
+VIT_GRAD_LEAF_RTOL = 5e-2
+
+
+def _cross_entropy(model, batch):
+    import torch.nn.functional as F
+
+    x, y = batch
+    return F.cross_entropy(model(x, train=True).float(), y)
+
+
+def _step_flops(model, batch) -> int:
+    """FLOP of one forward and backward as ``torch.utils.flop_counter``
+    counts them (convolutions and matrix products; norms, activations and
+    the optimizer are not counted)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        _cross_entropy(model, batch).backward()
+    model.zero_grad(set_to_none=True)
+    return counter.get_total_flops()
+
+
+def _vision_batch(seed: int, image_size: int):
+    from horovod_tpu_torch.data import synthetic_imagenet, to_device
+
+    images, labels = synthetic_imagenet(VISION_BATCH, image_size, seed=seed)
+    return to_device(images, DEV), to_device(labels, DEV)
+
+
+def _run_steps(step, model, batch, warmup: int, timed: int,
+               profile: bool) -> dict:
+    """``warmup`` + ``timed`` steps, then one under ``torch.profiler`` when
+    ``profile``; the flash launch counters are set to 0 before each step and
+    read after it."""
+    import torch
+
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    losses, seconds, launches = [], [], []
+    n = warmup + timed + int(profile)
+    prof = None
+    for i in range(n):
+        profiled = profile and i == n - 1
+        ctx = (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) if profiled
+            else contextlib.nullcontext())
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        with ctx as prof_i:
+            t0 = time.perf_counter()
+            out = step(model, batch)
+            losses.append(float(out.loss))    # synchronises
+            sync()
+            seconds.append(time.perf_counter() - t0)
+        if profiled:
+            prof = prof_i
+        launches.append({"flash_fwd": fa.launches,
+                         "flash_bwd_dq": fa.dq_launches,
+                         "flash_bwd_dkv": fa.dkv_launches})
+    step_s = statistics.median(seconds[warmup:warmup + timed])
+    return {"losses": losses, "step_seconds": seconds, "step_s": step_s,
+            "images_per_s": VISION_BATCH / step_s, "launches": launches,
+            "profiled_step": (_device_breakdown(prof, seconds[-1])
+                              if profile else None)}
+
+
+def _vision_train(name: str, model, opt, batch, *, warmup: int, timed: int,
+                  profile: bool, flops: int | None, extra: dict,
+                  after=None) -> dict:
+    """The data-parallel step a user runs: ``broadcast_parameters``,
+    ``broadcast_optimizer_state``, ``DistributedOptimizer``,
+    ``make_train_step``; timed, with the checks every vision path shares
+    (finite losses that fall on the repeated batch), the checks in
+    ``extra["checks"]`` and those ``after()`` returns once the steps ran."""
+    import numpy as np
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.optim.distributed_optimizer import (
+        DistributedOptimizer, broadcast_optimizer_state,
+        broadcast_parameters, make_train_step)
+
+    broadcast_parameters(model)
+    opt = DistributedOptimizer(opt)
+    broadcast_optimizer_state(opt)
+    step = make_train_step(_cross_entropy, opt)
+    run = _run_steps(step, model, batch, warmup, timed, profile)
+    out = {"batch": VISION_BATCH, "world_size": basics.size(),
+           "params": sum(p.numel() for p in model.parameters()), **run,
+           **extra}
+    if flops is not None:
+        out["model_flop_per_step"] = flops
+        out["model_flop_counted_by"] = ("torch.utils.flop_counter over one "
+                                        "forward+backward")
+        out["model_flop_share_of_989T"] = flops / run["step_s"] / PEAK_BF16
+    checks = {"finite": bool(np.isfinite(run["losses"]).all()),
+              "decreasing": run["losses"][-1] < run["losses"][0]}
+    out["checks"] = {**checks, **out.pop("checks", {}),
+                     **(after() if after else {})}
+    out["ok"] = all(out["checks"].values())
+    emit(name, **out)
+    if not out["ok"]:
+        raise PhaseError(f"{name} failed its checks: "
+                         f"{[k for k, v in out['checks'].items() if not v]}")
+    return out
+
+
+def phase_resnet101(seed: int) -> dict:
+    """``bench.py _bench_resnet``: ResNet-101, batch 64 at 224 × 224, bf16
+    compute with f32 parameters and BN, ``SGD(0.01, momentum=0.9)``."""
+    import torch
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.models.resnet import ResNet101
+
+    basics.init()
+    torch.backends.cudnn.benchmark = True
+    model = ResNet101(dtype=torch.bfloat16, device=DEV, seed=seed)
+    batch = _vision_batch(seed + 5, 224)
+    flops = _step_flops(model, batch)
+    stats = [m.running_mean.clone() for m in model.modules()
+             if hasattr(m, "running_mean")]
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+
+    def stats_moved():
+        moved = [m.running_mean for m in model.modules()
+                 if hasattr(m, "running_mean")]
+        return {"bn_stats_moved": all(not torch.equal(a, b)
+                                      for a, b in zip(stats, moved))}
+
+    out = _vision_train("train resnet101", model, opt, batch, warmup=2,
+                        timed=8, profile=True, flops=flops, extra={},
+                        after=stats_moved)
+    return out
+
+
+def _vit_grads(model, batch, bwd: str | None = None):
+    """Loss, logits and every parameter's gradient (f32 copies) of one
+    forward and backward; ``bwd`` sets ``HVD_TORCH_FLASH_BWD``."""
+    import torch.nn.functional as F
+
+    x, y = batch
+    if bwd is not None:
+        os.environ["HVD_TORCH_FLASH_BWD"] = bwd
+    try:
+        logits = model(x).float()
+        F.cross_entropy(logits, y).backward()
+    finally:
+        os.environ.pop("HVD_TORCH_FLASH_BWD", None)
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return logits.detach(), grads
+
+
+def _grad_distance(g, ref) -> dict:
+    """Global-norm difference and the attention weights' per-leaf relative
+    distances, against ``ref``."""
+    import torch
+
+    norm = float(torch.sqrt(sum(t.pow(2).sum() for t in g.values())))
+    norm_ref = float(torch.sqrt(sum(t.pow(2).sum() for t in ref.values())))
+    leaves = {n: float((g[n] - ref[n]).norm() / ref[n].norm())
+              for n in g if ".attn." in n and n.endswith("weight")}
+    return {"norm": norm, "norm_ref": norm_ref,
+            "norm_rel_diff": abs(norm - norm_ref) / norm_ref,
+            "max_leaf_rel": max(leaves.values()),
+            "worst_leaf": max(leaves, key=leaves.get)}
+
+
+def phase_vit_b16(seed: int) -> dict:
+    """``bench.py _bench_vit`` with the flash kernels: ViT-B/16, bf16,
+    ``attn_impl="flash"`` (head dim 64, L = 196, non-causal), batch 64 at
+    224, ``AdamW(1e-3, weight_decay=1e-4)``.  Each step must launch the
+    forward, dQ and dK/dV kernels once per block; step 0's logits and
+    gradients are held against dense attention and the blockwise backward
+    on the same weights."""
+    import torch
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.models.vit import ViT_B16
+
+    basics.init()
+    model = ViT_B16(dtype=torch.bfloat16, attn_impl="flash", device=DEV,
+                    seed=seed)
+    dense = ViT_B16(dtype=torch.bfloat16, attn_impl="dense", device=DEV,
+                    seed=seed)
+    dense.load_state_dict(model.state_dict())
+    batch = _vision_batch(seed + 6, 224)
+    logits_k, g_k = _vit_grads(model, batch)
+    _, g_b = _vit_grads(model, batch, "blockwise")
+    logits_d, g_d = _vit_grads(dense, batch)
+    flops = _step_flops(dense, batch)    # the kernels are not counted
+    del dense
+    scale = float(logits_d.abs().max())
+    err = float((logits_k - logits_d).abs().max())
+    vs_blockwise, vs_dense = _grad_distance(g_k, g_b), _grad_distance(g_k, g_d)
+    del g_k, g_b, g_d
+    depth = len(model.blocks)
+    want = {"flash_fwd": depth, "flash_bwd_dq": depth,
+            "flash_bwd_dkv": depth}
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4,
+                            fused=True)
+    checks = {
+        "logits_vs_dense": err <= VIT_LOGIT_RTOL * scale,
+        "grads_vs_blockwise": (
+            vs_blockwise["norm_rel_diff"] <= VIT_GRAD_NORM_RTOL
+            and vs_blockwise["max_leaf_rel"] <= VIT_GRAD_LEAF_RTOL),
+        "grads_vs_dense": (
+            vs_dense["norm_rel_diff"] <= VIT_GRAD_NORM_RTOL
+            and vs_dense["max_leaf_rel"] <= VIT_GRAD_LEAF_RTOL),
+    }
+    extra = {"depth": depth, "dim": 768, "heads": 12, "head_dim": 64,
+             "tokens": 196, "attn_impl": "flash",
+             "logits_max_abs_diff_vs_dense": err, "logits_max_abs": scale,
+             "logits_rtol": VIT_LOGIT_RTOL,
+             "grads_vs_blockwise": vs_blockwise, "grads_vs_dense": vs_dense,
+             "grad_norm_rtol": VIT_GRAD_NORM_RTOL,
+             "grad_leaf_rtol": VIT_GRAD_LEAF_RTOL,
+             "expected_launches_per_step": want, "checks": checks}
+    out = _vision_train("train vit_b16", model, opt, batch, warmup=2,
+                        timed=8, profile=True, flops=flops, extra=extra)
+    if not all(p == want for p in out["launches"]):
+        raise PhaseError(f"train vit_b16: launches per step "
+                         f"{out['launches']}, want {want}")
+    return {**out, "launches_total": {
+        k: sum(p[k] for p in out["launches"]) for k in want}}
+
+
+def phase_vgg16(seed: int) -> dict:
+    """BASELINE config 4: VGG-16 (138 M parameters, most in the classifier),
+    batch 64 at 224, bf16, ``SGD(0.01, momentum=0.9)``; the gradients'
+    fusion buckets and allreduce bytes per step."""
+    import torch
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.models.vgg import VGG16
+    from horovod_tpu_torch.ops.fusion import plan_buckets
+
+    basics.init()
+    torch.backends.cudnn.benchmark = True
+    model = VGG16(dtype=torch.bfloat16, device=DEV, seed=seed,
+                  dropout_seed=seed)
+    params = list(model.parameters())
+    threshold = basics.config().fusion_threshold_bytes
+    extra = {"fusion_threshold_bytes": threshold,
+             "fusion_buckets_per_step": len(plan_buckets(params, threshold)),
+             "allreduce_bytes_per_step": sum(p.numel() * p.element_size()
+                                             for p in params)}
+    opt = torch.optim.SGD(params, lr=0.01, momentum=0.9)
+    out = _vision_train("train vgg16", model, opt, _vision_batch(seed + 7, 224),
+                        warmup=1, timed=2, profile=False, flops=None,
+                        extra=extra)
+    return out
+
+
+def phase_inception_v3(seed: int) -> dict:
+    """Inception V3, batch 64 at 299 × 299, bf16, ``SGD(0.01,
+    momentum=0.9)``."""
+    import torch
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.models.inception import InceptionV3
+
+    basics.init()
+    torch.backends.cudnn.benchmark = True
+    model = InceptionV3(dtype=torch.bfloat16, device=DEV, seed=seed)
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    out = _vision_train("train inception_v3", model, opt,
+                        _vision_batch(seed + 8, 299), warmup=1, timed=2,
+                        profile=False, flops=None, extra={"image_size": 299})
+    return out
+
+
+def phase_fit_mnist(seed: int) -> dict:
+    """BASELINE config 1 through ``fit``: ``MnistConvNet`` on two epochs of
+    ``synthetic_mnist`` (4096), ``ShardedLoader`` (32 a rank), SGD(0.01·size,
+    momentum 0.9) behind ``DistributedOptimizer``, and the broadcast,
+    metric-average and warm-up callbacks."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch import basics, callbacks
+    from horovod_tpu_torch.data import ShardedLoader, synthetic_mnist
+    from horovod_tpu_torch.models.mnist import MnistConvNet
+    from horovod_tpu_torch.optim.distributed_optimizer import \
+        DistributedOptimizer
+    from horovod_tpu_torch.training import fit
+
+    basics.init()
+    model = MnistConvNet(device=DEV, seed=seed)
+    images, labels = synthetic_mnist(4096, seed=seed)
+    loader = ShardedLoader((images, labels), 32, seed=1, device=DEV)
+    lr = 0.01 * basics.size()
+    opt = DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=lr,
+                                               momentum=0.9))
+
+    def loss_fn(model, batch):
+        x, y = batch
+        return F.cross_entropy(model(x), y)
+
+    cbs = [callbacks.BroadcastGlobalVariablesCallback(0),
+           callbacks.MetricAverageCallback(),
+           callbacks.LearningRateWarmupCallback(lr, warmup_epochs=1)]
+    t0 = time.perf_counter()
+    _, _, history = fit(model, opt, loss_fn, loader, epochs=2,
+                        callbacks=cbs, verbose=False)
+    sync()
+    seconds = time.perf_counter() - t0
+    losses = [h["loss"] for h in history]
+    out = {"epochs": 2, "samples": 4096, "batch_per_rank": 32,
+           "steps_per_epoch": len(loader), "world_size": basics.size(),
+           "history": history, "fit_seconds": seconds,
+           "images_per_s": 2 * 4096 / seconds,
+           "checks": {"finite": all(map(math.isfinite, losses)),
+                      "decreasing": losses[-1] < losses[0]}}
+    out["ok"] = all(out["checks"].values())
+    emit("fit mnist", **out)
+    if not out["ok"]:
+        raise PhaseError(f"fit mnist failed its checks: {out['checks']}")
+    return out
 
 
 def main(argv=None) -> int:
@@ -921,6 +1407,8 @@ def main(argv=None) -> int:
         kern = phase_kernel(args.seed)
         phase = "kernel flash_bwd"
         kern_bwd = phase_kernel_bwd(args.seed)
+        phase = "kernel d64"
+        kern64 = phase_kernel_d64(args.seed)
         phase = "serve generate"
         if args.n_layers != 32:
             emit("depth cut", path="serve", n_layers=args.n_layers, of=32)
@@ -933,11 +1421,29 @@ def main(argv=None) -> int:
         phase = "train"
         emit("depth cut", path="train", n_layers=args.train_layers, of=32)
         train = phase_train(args.train_layers, args.seed)
+        torch.cuda.empty_cache()
+        phase = "train resnet101"
+        phase_resnet101(args.seed)
+        phase = "train vit_b16"
+        vit = phase_vit_b16(args.seed)
+        phase = "train vgg16"
+        phase_vgg16(args.seed)
+        phase = "train inception_v3"
+        phase_inception_v3(args.seed)
+        phase = "fit mnist"
+        phase_fit_mnist(args.seed)
     except Exception as e:  # every failure ends the run without a result
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
+        print(f"chip_smoke: phase {phase!r} failed", file=sys.stderr)
+        traceback.print_exc()
         return 1
+    finally:    # the phases share one process group, as a user's run does
+        from horovod_tpu_torch import basics
+
+        basics.shutdown()
     print(json.dumps({"kernels": _kernel_rows(build, kern, kern_bwd, gen, bat,
-                                              train)}), flush=True)
+                                              train, kern64, vit)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
         flush=True)
@@ -955,14 +1461,17 @@ def _ptx(build, kernel: str) -> dict:
     return out
 
 
-def _kernel_rows(build, kern, kern_bwd, gen, bat, train) -> list[dict]:
-    """One row per kernel: its launches on the main paths (serving's
-    generate and batcher, the train steps), its largest error over the bf16
-    cases and its times at its main shape (the generate prefill for the
-    forward, the training shape for the backward pair).  ``ms`` is device
-    time; ``prev_ms`` the earlier mma.sync kernel (same run, same inputs);
-    with the build's registers and spills and the block's shared memory.
-    The forward's row adds the same times at the training shape."""
+def _kernel_rows(build, kern, kern_bwd, gen, bat, train, kern64,
+                 vit) -> list[dict]:
+    """One row per kernel and head dim: its launches on the main paths
+    (D = 128: serving's generate and batcher, the Llama train steps; D =
+    64: the ViT-B/16 train steps), its largest error over the bf16 cases
+    and its times at its main shape (the generate prefill for the forward,
+    the Llama training shape for the backward pair, the ViT-B/16 shape at
+    D = 64).  ``ms`` is device time; ``prev_ms`` the earlier mma.sync kernel
+    (same run, same inputs); with the build's registers and spills and the
+    block's shared memory.  The forward's row adds the same times at the
+    training shape."""
     from horovod_tpu_torch.parallel import flash_attention as fa
 
     fwd = kern["cases"][0]
@@ -1008,6 +1517,31 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, train) -> list[dict]:
             "library_ms": bwd["library_ms"],
             **_ptx(build, kernel),
             "smem_bytes": fa.smem_bytes("flash_bwd", entry),
+        })
+    # D = 64: the mma.sync kernels, timed at the ViT-B/16 shape.
+    vfwd = next(c for c in kern64["fwd"] if "ms" in c)
+    vbwd = next(c for c in kern64["bwd"] if "times" in c)["times"]
+    keys = ("ms", "wall_ms", "host_us_per_call", "plain_ms", "bound_ms",
+            "bound_by", "tflops", "share_of_bound")
+    for name, src_file, line, grads, t, lib, kernel in (
+            ("flash_fwd_d64", "flash_fwd.cu", 62, ("o",), vfwd,
+             vfwd["library_ms"], "flash_fwd_mma_kernel"),
+            ("flash_bwd_dq_d64", "flash_bwd.cu", 188, ("dq",), vbwd["dq"],
+             vbwd["library_ms"], "flash_bwd_dq_mma_kernel"),
+            ("flash_bwd_dkv_d64", "flash_bwd.cu", 229, ("dk", "dv"),
+             vbwd["dkv"], vbwd["library_ms"], "flash_bwd_dkv_mma_kernel")):
+        kernel += "I13__nv_bfloat16Li64E"      # the bf16, D = 64 instance
+        cases = kern64["fwd"] if grads == ("o",) else kern64["bwd"]
+        rows.append({
+            "name": name, "route": "cuda", "design": "cuda mma.sync",
+            "source": f"horovod_tpu_torch/csrc/{src_file}",
+            "replaces": f"{src}:{line}",
+            "head_dim": 64, "shape": VIT_SHAPE[0],
+            "launches": vit["launches_total"][name.removesuffix("_d64")],
+            "max_abs_err": max(c[f"{g}_max_abs_err"] for c in cases
+                               for g in grads if c["dtype"] == "bf16"),
+            **{k: t[k] for k in keys}, "library_ms": lib,
+            **_ptx(build, kernel),
         })
     return rows
 

@@ -62,9 +62,10 @@
 // row gives S = 0, not −∞), keys >= L too; only the diagonal tile and the
 // tiles holding row or key L-1 test the mask.
 //
-// `hvd_flash_bwd_dq_mma`, `hvd_flash_bwd_dkv_mma` (bf16, fp16, f32): the
-// earlier design, kept for f32 (wgmma's only 32-bit path is TF32, which
-// would break the f32 contract) and as chip_smoke.py's same-run yardstick.
+// `hvd_flash_bwd_dq_mma`, `hvd_flash_bwd_dkv_mma` (bf16, fp16, f32; D = 64
+// or 128): the earlier design, kept for f32 (wgmma's only 32-bit path is
+// TF32, which would break the f32 contract), for D = 64 in every dtype (the
+// ViT path, L = 196 at 224 px) and as chip_smoke.py's same-run yardstick.
 //
 //   dQ: one block per (b·h, 64-row query tile), four warps of 16 query
 //   rows.  Q and dO stay in shared memory; the block walks the K/V tiles
@@ -76,9 +77,20 @@
 //   dPᵀ = V·dOᵀ, Pᵀ and dSᵀ rounded into shared memory and read back as
 //   the left operand of Pᵀ·dO and dSᵀ·Q.  For Sᵀ/dPᵀ warp w owns keys
 //   16·(w%4) and queries 32·(w/4); for dK/dV keys 16·(w%4) and head
-//   columns 64·(w/4), 64 accumulators a thread.  Rows >= L are zero-filled
-//   on load and masked.  For float32 the same fragment layout is computed
-//   with plain FMAs (no TF32).
+//   columns D/2·(w/4), D/2 accumulators a thread for each of dK and dV.
+//   At D = 64 a warp covers 16 keys × 32 head columns (four n8 tiles), so
+//   the eight warps still tile the 64 × 64 output once.  Rows >= L are
+//   zero-filled on load and masked.  For float32 the same fragment layout
+//   is computed with plain FMAs (no TF32).
+//
+//   At D = 64 a shared-memory row is 128 B (bf16) plus the 16-byte pad, so
+//   the 16-byte vector loads stay aligned; dQ takes 46,080 B of shared
+//   memory, dK/dV 55,808 B (bf16; 92,160 and 111,104 B in f32).  At the
+//   ViT-B/16 shape (B=64, L=196, H=12, non-causal, bf16) dQ's three
+//   products are 11.3 GFLOP (11.5 µs at 989 TFLOP/s) against 97 MB moved
+//   (q, k, v, dO read, dQ written, LSE and Δ: 29 µs at 3.35 TB/s), and
+//   dK/dV's four 15.1 GFLOP (15.3 µs) against 117 MB (35 µs): both bound
+//   by bytes at this short sequence.
 
 #include "flash_common.cuh"
 
@@ -341,8 +353,8 @@ int launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout
       static_cast<T*>(dk), static_cast<T*>(dv), L, H, KVH, causal, scale);
 }
 
-bool bad_shape(int B, int H, int KVH, int L, int D) {
-  return B < 1 || L < 1 || KVH < 1 || H % KVH != 0 || D != 128;
+bool bad_shape(int B, int H, int KVH, int L) {
+  return B < 1 || L < 1 || KVH < 1 || H % KVH != 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -755,21 +767,64 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
       KVH, causal, scale);
 }
 
+// The mma.sync kernels' launches for each storage dtype at head width D.
+template <int D>
+int dispatch_dq_mma(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dq, int B, int H, int KVH, int L, int dtype,
+                    int causal, float scale, cudaStream_t s) {
+  switch (dtype) {
+    case 0:
+      return launch_dq_mma<__nv_bfloat16, D>(q, k, v, dout, lse, delta, dq, B,
+                                             H, KVH, L, causal, scale, s);
+    case 1:
+      return launch_dq_mma<__half, D>(q, k, v, dout, lse, delta, dq, B, H, KVH,
+                                      L, causal, scale, s);
+    case 2:
+      return launch_dq_mma<float, D>(q, k, v, dout, lse, delta, dq, B, H, KVH,
+                                     L, causal, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int D>
+int dispatch_dkv_mma(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dk, void* dv, int B, int H, int KVH, int L,
+                     int dtype, int causal, float scale, cudaStream_t s) {
+  switch (dtype) {
+    case 0:
+      return launch_dkv_mma<__nv_bfloat16, D>(q, k, v, dout, lse, delta, dk,
+                                              dv, B, H, KVH, L, causal, scale,
+                                              s);
+    case 1:
+      return launch_dkv_mma<__half, D>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                       KVH, L, causal, scale, s);
+    case 2:
+      return launch_dkv_mma<float, D>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                      KVH, L, causal, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // q, dout [B·H, L, D]; k/v [B·KVH, L, D]; dq [B·H, L, D], all in one dtype
 // (0 = bf16, 1 = fp16, 2 = f32); lse, delta [B·H, L] f32.  All contiguous
-// and 16-byte aligned; D must be 128.  Returns a cudaError_t: 0 when the
-// launch was accepted.
+// and 16-byte aligned.  Returns a cudaError_t: 0 when the launch was
+// accepted, cudaErrorInvalidValue for a shape or dtype the entry does not
+// take.
 //
-// The Hopper dQ kernel: bf16 and fp16 only (f32 is refused).
+// The Hopper dQ kernel: bf16 and fp16 at D = 128 (f32 is refused).
 int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int B, int H, int KVH, int L, int D, int dtype,
                      int causal, float scale, void* stream) {
-  if (bad_shape(B, H, KVH, L, D)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, H, KVH, L) || D != HD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
@@ -785,12 +840,12 @@ int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
 
 // As hvd_flash_bwd_dq; dk/dv are per *query* head, [B·H, L, D] in the
 // inputs' dtype, for the caller to sum over each GQA group.  The Hopper
-// dK/dV kernel: bf16 and fp16 only.
+// dK/dV kernel: bf16 and fp16 at D = 128.
 int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dk, void* dv, int B, int H, int KVH, int L, int D,
                       int dtype, int causal, float scale, void* stream) {
-  if (bad_shape(B, H, KVH, L, D)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, H, KVH, L) || D != HD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
@@ -809,23 +864,21 @@ int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
 int hvd_flash_bwd_dq_smem_bytes() { return (int)DQ_SMEM; }
 int hvd_flash_bwd_dkv_smem_bytes() { return (int)DKV_SMEM; }
 
-// The mma.sync / FMA kernels, every dtype; same arguments.
+// The mma.sync / FMA kernels, every dtype, at D = 64 (the ViT head width)
+// or D = 128; same arguments.
 int hvd_flash_bwd_dq_mma(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int B, int H, int KVH, int L, int D, int dtype,
                      int causal, float scale, void* stream) {
-  if (bad_shape(B, H, KVH, L, D)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, H, KVH, L)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_dq_mma<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, B, H,
-                                           KVH, L, causal, scale, s);
-    case 1:
-      return launch_dq_mma<__half, 128>(q, k, v, dout, lse, delta, dq, B, H, KVH,
-                                    L, causal, scale, s);
-    case 2:
-      return launch_dq_mma<float, 128>(q, k, v, dout, lse, delta, dq, B, H, KVH, L,
-                                   causal, scale, s);
+  switch (D) {
+    case 64:
+      return dispatch_dq_mma<64>(q, k, v, dout, lse, delta, dq, B, H, KVH, L,
+                                 dtype, causal, scale, s);
+    case 128:
+      return dispatch_dq_mma<128>(q, k, v, dout, lse, delta, dq, B, H, KVH, L,
+                                  dtype, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -835,18 +888,15 @@ int hvd_flash_bwd_dkv_mma(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dk, void* dv, int B, int H, int KVH, int L, int D,
                       int dtype, int causal, float scale, void* stream) {
-  if (bad_shape(B, H, KVH, L, D)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, H, KVH, L)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_dkv_mma<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv,
-                                            B, H, KVH, L, causal, scale, s);
-    case 1:
-      return launch_dkv_mma<__half, 128>(q, k, v, dout, lse, delta, dk, dv, B, H,
-                                     KVH, L, causal, scale, s);
-    case 2:
-      return launch_dkv_mma<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, H,
-                                    KVH, L, causal, scale, s);
+  switch (D) {
+    case 64:
+      return dispatch_dkv_mma<64>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH,
+                                  L, dtype, causal, scale, s);
+    case 128:
+      return dispatch_dkv_mma<128>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                   KVH, L, dtype, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

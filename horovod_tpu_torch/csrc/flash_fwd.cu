@@ -46,13 +46,21 @@
 // issued longest first (blockIdx.y runs the causal triangle from its
 // bottom, blockIdx.x over heads).
 //
-// `hvd_flash_fwd_mma` (bf16, fp16, f32): `flash_fwd_mma_kernel`, the
-// earlier design, kept for f32 (wgmma's only 32-bit path is TF32, which
-// would break the f32 exactness the plain version and the CPU tests rely
-// on) and as the same-run yardstick of chip_smoke.py.  One block per
+// `hvd_flash_fwd_mma` (bf16, fp16, f32; D = 64 or 128):
+// `flash_fwd_mma_kernel`, the earlier design, kept for f32 (wgmma's only
+// 32-bit path is TF32, which would break the f32 exactness the plain
+// version and the CPU tests rely on), for D = 64 in every dtype (the ViT
+// path: patch 16 at 224 px gives L = 196 and every ViT head is 64 wide)
+// and as the same-run yardstick of chip_smoke.py.  One block per
 // (b·h, 64-row query tile), four warps of 16 rows, 64-key tiles loaded
 // synchronously, mma.sync m16n8k16 (plain FMAs in the same fragment layout
-// for f32), P through shared memory.
+// for f32), P through shared memory.  At D = 64 a row of a tile is 128 B
+// (bf16) plus the 16-byte pad, so the 16-byte vector loads stay aligned,
+// each warp holds eight n8 accumulator tiles of O, and the block takes
+// 36,864 B of shared memory (73,728 B for f32).  At the ViT-B/16 shape
+// (B=64, L=196, H=12, non-causal, bf16) the work is 4·B·H·D·L² = 7.55
+// GFLOP, 7.6 µs at 989 TFLOP/s, against 77.7 MB of q, k, v, o and LSE,
+// 23.2 µs at 3.35 TB/s: bound by bytes, not by the tensor cores.
 //
 // What the Hopper design still leaves on the table, measured with
 // chip_smoke.py's timing on an H100 80GB HBM3 at 700 W (PERF.md, PR 3):
@@ -443,16 +451,33 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, void* lse,
       static_cast<float*>(lse), L, H, KVH, causal, scale);
 }
 
+// The mma.sync kernel's launch for each storage dtype at head width D.
+template <int D>
+int dispatch_mma(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int B, int H, int KVH, int L, int dtype,
+                 int causal, float scale, cudaStream_t s) {
+  switch (dtype) {
+    case 0:
+      return launch_mma<__nv_bfloat16, D>(q, k, v, o, lse, B, H, KVH, L, causal, scale, s);
+    case 1:
+      return launch_mma<__half, D>(q, k, v, o, lse, B, H, KVH, L, causal, scale, s);
+    case 2:
+      return launch_mma<float, D>(q, k, v, o, lse, B, H, KVH, L, causal, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // q [B·H, L, D], k/v [B·KVH, L, D], o [B·H, L, D] in one dtype
 // (0 = bf16, 1 = fp16, 2 = f32); lse [B·H, L] f32.  All contiguous and
-// 16-byte aligned; D must be 128, the head width of the Llama-3 models the
-// port serves.  Returns a cudaError_t: 0 when the launch was accepted.
+// 16-byte aligned.  Returns a cudaError_t: 0 when the launch was accepted,
+// cudaErrorInvalidValue for a shape or dtype the entry does not take.
 //
-// The Hopper kernel: bf16 and fp16 only (f32 is refused).
+// The Hopper kernel: bf16 and fp16 at D = 128 (the Llama-3 head width).
 int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, int B, int H, int KVH, int L, int D, int dtype,
                   int causal, float scale, void* stream) {
@@ -469,20 +494,19 @@ int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-// The mma.sync / FMA kernel, every dtype; same arguments.
+// The mma.sync / FMA kernel, every dtype, at D = 64 (the ViT head width)
+// or D = 128; same arguments.
 int hvd_flash_fwd_mma(const void* q, const void* k, const void* v, void* o,
                       void* lse, int B, int H, int KVH, int L, int D, int dtype,
                       int causal, float scale, void* stream) {
-  if (B < 1 || L < 1 || KVH < 1 || H % KVH != 0 || D != 128)
+  if (B < 1 || L < 1 || KVH < 1 || H % KVH != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_mma<__nv_bfloat16, 128>(q, k, v, o, lse, B, H, KVH, L, causal, scale, s);
-    case 1:
-      return launch_mma<__half, 128>(q, k, v, o, lse, B, H, KVH, L, causal, scale, s);
-    case 2:
-      return launch_mma<float, 128>(q, k, v, o, lse, B, H, KVH, L, causal, scale, s);
+  switch (D) {
+    case 64:
+      return dispatch_mma<64>(q, k, v, o, lse, B, H, KVH, L, dtype, causal, scale, s);
+    case 128:
+      return dispatch_mma<128>(q, k, v, o, lse, B, H, KVH, L, dtype, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

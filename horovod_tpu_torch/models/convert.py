@@ -1,4 +1,8 @@
-"""Parameters of the JAX reference → parameters of the port."""
+"""Parameters of the JAX reference → parameters of the port.
+
+``params_from_jax`` for the Llama parameter tree; ``vision_state_dict_from_flax``
+for the flax variables of the vision models.
+"""
 
 from __future__ import annotations
 
@@ -26,3 +30,43 @@ def params_from_jax(tree: dict, *, device: str | torch.device | None = None
     dev = resolve_device(device)
     return {k: params_from_jax(v, device=dev) if isinstance(v, dict)
             else _to_tensor(v, dev) for k, v in tree.items()}
+
+
+def _flat_items(tree: dict, prefix: tuple = ()):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _flat_items(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+# flax leaf name → torch name, per variable collection.
+_PARAM_NAMES = {"kernel": "weight", "scale": "weight"}
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def vision_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """A flax ``{"params", "batch_stats"}`` tree of the JAX vision models
+    (numpy or array-like leaves) as the ``state_dict`` of the port's twin
+    module (``models/{mnist,resnet,vgg,inception,vit}.py``), CPU tensors
+    for ``load_state_dict``.
+
+    The port's submodules carry flax's names, so the key is the flax path
+    joined by dots, with the leaf renamed: a conv ``kernel`` HWIO becomes
+    ``weight`` OIHW, a Dense ``kernel`` [in, out] becomes ``weight``
+    [out, in], a norm ``scale`` becomes ``weight``, BN statistics ``mean``
+    and ``var`` become ``running_mean`` and ``running_var``; ``bias`` and
+    the ViT's ``pos_embed`` carry over as they are."""
+    out = {}
+    for collection, tree in variables.items():
+        if collection not in ("params", "batch_stats"):
+            raise ValueError(f"unknown flax collection {collection!r}")
+        names = _PARAM_NAMES if collection == "params" else _STAT_NAMES
+        for path, leaf in _flat_items(tree):
+            t = _to_tensor(leaf, torch.device("cpu"))
+            if path[-1] == "kernel":
+                t = t.permute(3, 2, 0, 1) if t.ndim == 4 else t.t()
+            key = ".".join(path[:-1] + (names.get(path[-1], path[-1]),))
+            out[key] = t.contiguous()
+    return out

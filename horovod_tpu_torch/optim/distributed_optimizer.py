@@ -2,7 +2,8 @@
 
 Port of ``horovod_tpu/optim/distributed_optimizer.py``
 (``allreduce_gradients``, ``DistributedOptimizer``, ``TrainStepResult``,
-``make_train_step``, ``broadcast_parameters``).  The JAX package wraps an
+``make_train_step``, ``broadcast_parameters``,
+``broadcast_optimizer_state``).  The JAX package wraps an
 optax transformation inside one compiled SPMD program; the port runs one
 process per GPU and wraps a ``torch.optim.Optimizer``, Horovod's own torch
 idiom: after the backward, :meth:`DistributedOptimizer.synchronize`
@@ -13,19 +14,23 @@ clipping, where asked for, comes after it:
 backward → ``synchronize()`` → ``clip_grad_norm_`` → ``step()``.
 
 Top-k (``is_sparse``), stateful compressors (PowerSGD, error feedback),
-process sets, Adasum and ``broadcast_optimizer_state`` come with a later
-slice of the port.
+process sets and Adasum come with a later slice of the port.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
+from horovod_tpu_torch import basics
 from horovod_tpu_torch.ops import collective_ops
 from horovod_tpu_torch.ops.collective_ops import Average, _ReduceOp
 from horovod_tpu_torch.ops.compression import Compression
+from horovod_tpu_torch.utils.tree import leaves, tree_map
 
 
 def tree_leaves(tree: Any) -> list[torch.Tensor]:
@@ -206,3 +211,69 @@ def broadcast_parameters(params: Any, root_rank: int = 0) -> Any:
     for t in tree_leaves(params):
         collective_ops.broadcast_(t, root_rank)
     return params
+
+
+
+@dataclasses.dataclass
+class _Leaf:
+    """A leaf of the root's tree as every rank learns it: tensors and numpy
+    arrays by shape and dtype (their values follow by broadcast), anything
+    else (Python numbers, numpy scalars, strings, None) by value."""
+    kind: str                   # "tensor" | "ndarray" | "value"
+    shape: tuple = ()
+    dtype: Any = None
+    value: Any = None
+
+
+def _describe(leaf) -> _Leaf:
+    if isinstance(leaf, torch.Tensor):
+        return _Leaf("tensor", tuple(leaf.shape), leaf.dtype)
+    if isinstance(leaf, np.ndarray):
+        return _Leaf("ndarray", leaf.shape, leaf.dtype)
+    return _Leaf("value", value=leaf)
+
+
+def _broadcast_tree(tree: Any, root_rank: int) -> Any:
+    """Every rank receives ``root_rank``'s tree (nested dicts, lists and
+    tuples): its structure and small values in one object broadcast, then
+    each tensor or array leaf in one broadcast on this process's device.
+    Tensors come back on that device, arrays as numpy arrays."""
+    dev = basics.device()
+    is_root = basics.rank() == root_rank
+    desc = [tree_map(_describe, tree) if is_root else None]
+    dist.broadcast_object_list(desc, src=root_rank, device=dev)
+    own = iter(leaves(tree)) if is_root else None
+
+    def fill(d: _Leaf):
+        mine = next(own) if is_root else None
+        if d.kind == "value":
+            return d.value
+        if d.kind == "tensor":
+            buf = (mine.detach().to(dev, copy=True) if is_root else
+                   torch.empty(d.shape, dtype=d.dtype, device=dev))
+        else:
+            buf = torch.from_numpy(np.array(
+                mine if is_root else np.zeros(d.shape, d.dtype))).to(dev)
+        collective_ops.broadcast_(buf, root_rank)
+        return buf if d.kind == "tensor" else buf.cpu().numpy()
+
+    return tree_map(fill, desc[0])
+
+
+def broadcast_optimizer_state(opt_state: Any, root_rank: int = 0) -> Any:
+    """Make every process hold ``root_rank``'s optimizer state.
+
+    ``opt_state``: a ``torch.optim.Optimizer`` or
+    :class:`DistributedOptimizer`, whose ``state_dict()`` (every state
+    tensor, ``step`` included, and the param groups' hyper-parameters) is
+    broadcast and loaded back, in place, and which is returned; or a tree of
+    tensors, numpy arrays and Python values, returned as the root's tree
+    (arrays stay numpy arrays, scalars keep their types).  Ranks whose
+    optimizer has no state yet (no step taken) receive the root's."""
+    basics._require_init()
+    opt = (opt_state.optimizer if isinstance(opt_state, DistributedOptimizer)
+           else opt_state)
+    if isinstance(opt, torch.optim.Optimizer):
+        opt.load_state_dict(_broadcast_tree(opt.state_dict(), root_rank))
+        return opt_state
+    return _broadcast_tree(opt_state, root_rank)

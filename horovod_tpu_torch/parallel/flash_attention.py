@@ -6,14 +6,18 @@ Port of ``horovod_tpu/parallel/flash_attention.py`` (``_flash_forward``,
 ``sm_90a``, built by :mod:`.._build`:
 
 * ``_flash_kernel`` → ``csrc/flash_fwd.cu`` (:func:`_flash_forward_cuda`):
-  ``hvd_flash_fwd``, the Hopper kernel (TMA, wgmma), for bf16 and fp16;
-  ``hvd_flash_fwd_mma``, the ``mma.sync``/FMA kernel, for f32;
+  ``hvd_flash_fwd``, the Hopper kernel (TMA, wgmma), for bf16 and fp16 at
+  head dim 128; ``hvd_flash_fwd_mma``, the ``mma.sync``/FMA kernel, for f32
+  and for head dim 64 in every dtype;
 * ``_flash_dq_kernel`` → ``csrc/flash_bwd.cu`` (:func:`_flash_bwd_dq_cuda`):
-  ``hvd_flash_bwd_dq``, the Hopper kernel, for bf16 and fp16;
-  ``hvd_flash_bwd_dq_mma`` for f32;
+  ``hvd_flash_bwd_dq``, the Hopper kernel, for bf16 and fp16 at head dim
+  128; ``hvd_flash_bwd_dq_mma`` for f32 and for head dim 64;
 * ``_flash_dkv_kernel`` → ``csrc/flash_bwd.cu`` (:func:`_flash_bwd_dkv_cuda`):
-  ``hvd_flash_bwd_dkv`` for bf16 and fp16; ``hvd_flash_bwd_dkv_mma`` for
-  f32.
+  ``hvd_flash_bwd_dkv`` for bf16 and fp16 at head dim 128;
+  ``hvd_flash_bwd_dkv_mma`` for f32 and for head dim 64.
+
+The kernels take head dims 64 (every ViT) and 128 (every Llama-3); a CUDA
+call at any other head dim raises ``ValueError``.
 
 :func:`_flash_forward_reference` and :func:`_flash_backward_reference` are
 the same computations in plain PyTorch (same block loops, causal block
@@ -45,7 +49,7 @@ dq_launches = 0
 dkv_launches = 0
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-_HEAD_DIM = 128       # the kernel's one head width (Llama-3)
+_HEAD_DIMS = (64, 128)   # the kernels' head widths (ViT, Llama-3)
 
 
 def _kv_rows(bh: int, n_heads: int, n_kv_heads: int, device) -> torch.Tensor:
@@ -220,9 +224,9 @@ def _check_cuda_inputs(q, k, v, n_heads, n_kv_heads):
     """Shapes first (they do not depend on the device), then device, dtype
     and layout."""
     bh, l, d = q.shape
-    if d != _HEAD_DIM:
-        raise ValueError(f"flash kernel: head dim {d}, the kernel takes "
-                         f"{_HEAD_DIM}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash kernel: head dim {d}; the kernels take "
+                         f"head dims {_HEAD_DIMS}")
     if n_heads % n_kv_heads or bh % n_heads:
         raise ValueError(f"flash kernel: {bh} q rows, {n_heads} heads and "
                          f"{n_kv_heads} kv heads do not divide")
@@ -254,15 +258,18 @@ _SIGNATURES = {
     "flash_bwd": {"hvd_flash_bwd_dq": 7, "hvd_flash_bwd_dkv": 8,
                   "hvd_flash_bwd_dq_mma": 7, "hvd_flash_bwd_dkv_mma": 8},
 }
-# Entries by dtype: the Hopper kernels (wgmma, whose only 32-bit path is
-# TF32) take the 16-bit types; f32 keeps the mma.sync/FMA kernels.
-_FWD_ENTRY = {torch.bfloat16: "hvd_flash_fwd", torch.float16: "hvd_flash_fwd",
-              torch.float32: "hvd_flash_fwd_mma"}
-_BWD_ENTRY = {  # dtype -> (dQ entry, dK/dV entry)
-    torch.bfloat16: ("hvd_flash_bwd_dq", "hvd_flash_bwd_dkv"),
-    torch.float16: ("hvd_flash_bwd_dq", "hvd_flash_bwd_dkv"),
-    torch.float32: ("hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma"),
-}
+# Entries by (dtype, head dim): the Hopper kernels (wgmma, whose only 32-bit
+# path is TF32) take the 16-bit types at D = 128; f32, and D = 64 in every
+# dtype, take the mma.sync/FMA kernels.
+_HOPPER_FWD = "hvd_flash_fwd"
+_HOPPER_BWD = ("hvd_flash_bwd_dq", "hvd_flash_bwd_dkv")
+_MMA_FWD = "hvd_flash_fwd_mma"
+_MMA_BWD = ("hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma")
+_FWD_ENTRY = {(dt, d): _HOPPER_FWD if dt != torch.float32 and d == 128
+              else _MMA_FWD for dt in _DTYPE_CODE for d in _HEAD_DIMS}
+_BWD_ENTRY = {  # (dtype, D) -> (dQ entry, dK/dV entry)
+    (dt, d): _HOPPER_BWD if dt != torch.float32 and d == 128 else _MMA_BWD
+    for dt in _DTYPE_CODE for d in _HEAD_DIMS}
 
 
 def _kernel_lib(name: str) -> ctypes.CDLL:
@@ -307,16 +314,17 @@ def _launch(name: str, fn: str, tensors, q, n_heads, n_kv_heads, causal):
 def _flash_forward_cuda(q, k, v, *, n_heads: int, n_kv_heads: int,
                         causal: bool):
     """Launch ``csrc/flash_fwd.cu`` on the current stream: the Hopper
-    kernel for bf16/fp16 (128×128 tiles), the ``mma.sync``/FMA kernel for
-    f32 (64×64).  Same contract as :func:`_flash_forward_reference`; the
-    kernel's tiles replace ``block_q``/``block_k``."""
+    kernel for bf16/fp16 at D = 128 (128×128 tiles), the ``mma.sync``/FMA
+    kernel for f32 and for D = 64 (64×64; ``_FWD_ENTRY``).  Same contract
+    as :func:`_flash_forward_reference`; the kernel's tiles replace
+    ``block_q``/``block_k``."""
     global launches
     _check_cuda_inputs(q, k, v, n_heads, n_kv_heads)
     bh, l, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, l, 1), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", _FWD_ENTRY[q.dtype], (q, k, v, o, lse), q, n_heads,
-            n_kv_heads, causal)
+    _launch("flash_fwd", _FWD_ENTRY[q.dtype, q.shape[2]], (q, k, v, o, lse),
+            q, n_heads, n_kv_heads, causal)
     launches += 1
     return o, lse
 
@@ -338,13 +346,13 @@ def _check_bwd_inputs(q, k, v, do, lse, delta, n_heads, n_kv_heads):
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, n_heads: int,
                        n_kv_heads: int, causal: bool):
-    """Launch the dQ kernel of ``csrc/flash_bwd.cu`` for q's dtype
-    (``_BWD_ENTRY``): dQ [B·H, L, D] in q's dtype from q, k, v, dO, the
+    """Launch the dQ kernel of ``csrc/flash_bwd.cu`` for q's dtype and head
+    dim (``_BWD_ENTRY``): dQ [B·H, L, D] in q's dtype from q, k, v, dO, the
     forward's LSE and Δ ([B·H, L] f32)."""
     global dq_launches
     _check_bwd_inputs(q, k, v, do, lse, delta, n_heads, n_kv_heads)
     dq = torch.empty_like(q)
-    _launch("flash_bwd", _BWD_ENTRY[q.dtype][0],
+    _launch("flash_bwd", _BWD_ENTRY[q.dtype, q.shape[2]][0],
             (q, k, v, do, lse, delta, dq), q, n_heads, n_kv_heads, causal)
     dq_launches += 1
     return dq
@@ -352,13 +360,13 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, n_heads: int,
 
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, n_heads: int,
                         n_kv_heads: int, causal: bool):
-    """Launch the dK/dV kernel of ``csrc/flash_bwd.cu`` for q's dtype
-    (``_BWD_ENTRY``): dK and dV per *query* head,
+    """Launch the dK/dV kernel of ``csrc/flash_bwd.cu`` for q's dtype and
+    head dim (``_BWD_ENTRY``): dK and dV per *query* head,
     ``([B·H, L, D], [B·H, L, D])`` in k's dtype, for :func:`_group_sum`."""
     global dkv_launches
     _check_bwd_inputs(q, k, v, do, lse, delta, n_heads, n_kv_heads)
     dk_h, dv_h = torch.empty_like(q), torch.empty_like(q)
-    _launch("flash_bwd", _BWD_ENTRY[q.dtype][1],
+    _launch("flash_bwd", _BWD_ENTRY[q.dtype, q.shape[2]][1],
             (q, k, v, do, lse, delta, dk_h, dv_h), q, n_heads, n_kv_heads,
             causal)
     dkv_launches += 1

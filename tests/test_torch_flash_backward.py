@@ -172,16 +172,16 @@ def test_cpu_backward_never_touches_the_kernels(monkeypatch):
                                      "_flash_bwd_dkv_cuda"])
 def test_backward_wrappers_reject_cpu_tensors_and_head_dims(wrapper):
     """The kernel wrappers check device and head width before they build
-    anything: a CPU tensor and D != 128 both raise."""
+    anything: a CPU tensor and a head dim outside {64, 128} both raise."""
     fn = getattr(tflash, wrapper)
     q = torch.zeros((H, 16, 128), dtype=torch.bfloat16)
     k = torch.zeros((KVH, 16, 128), dtype=torch.bfloat16)
     lse = torch.zeros((H, 16), dtype=torch.float32)
     with pytest.raises(ValueError, match="not CUDA"):
         fn(q, k, k, q, lse, lse, n_heads=H, n_kv_heads=KVH, causal=True)
-    q64, k64 = q[..., :64].contiguous(), k[..., :64].contiguous()
-    with pytest.raises(ValueError, match="head dim 64"):
-        fn(q64, k64, k64, q64, lse, lse, n_heads=H, n_kv_heads=KVH,
+    q96, k96 = q[..., :96].contiguous(), k[..., :96].contiguous()
+    with pytest.raises(ValueError, match=r"head dim 96.*\(64, 128\)"):
+        fn(q96, k96, k96, q96, lse, lse, n_heads=H, n_kv_heads=KVH,
            causal=True)
 
 

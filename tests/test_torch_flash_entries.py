@@ -208,3 +208,88 @@ def test_plain_backward_at_kernel_tiles_matches_jax(b, l, causal, dtype):
         np.testing.assert_allclose(a.float().numpy(), w,
                                    atol=rtol * float(np.abs(w).max()),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_head_dim_64_routes_to_the_mma_kernels(monkeypatch, dtype):
+    """At D = 64 (the ViT's head width) every dtype takes the mma.sync
+    entries, forward and backward; each wrapper counts its launch."""
+    calls = []
+    monkeypatch.setattr(tflash, "_check_cuda_inputs", lambda *a: None)
+    monkeypatch.setattr(tflash, "_check_bwd_inputs", lambda *a: None)
+    monkeypatch.setattr(
+        tflash, "_launch",
+        lambda name, fn, tensors, q, h, kvh, causal: calls.append(fn))
+    for name in ("launches", "dq_launches", "dkv_launches"):
+        monkeypatch.setattr(tflash, name, 0)
+    q = k = v = do = torch.zeros((2 * 12, 196, 64), dtype=dtype)
+    lse = delta = torch.zeros((24, 196), dtype=torch.float32)
+    kw = dict(n_heads=12, n_kv_heads=12, causal=False)
+    tflash._flash_forward_cuda(q, k, v, **kw)
+    tflash._flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+    tflash._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    assert calls == ["hvd_flash_fwd_mma", "hvd_flash_bwd_dq_mma",
+                     "hvd_flash_bwd_dkv_mma"]
+    assert (tflash.launches, tflash.dq_launches, tflash.dkv_launches) == (
+        1, 1, 1)
+
+
+def test_routing_table_covers_dtype_and_head_dim():
+    """The Hopper entries only for 16-bit types at D = 128; every other
+    supported (dtype, D) pair takes the mma.sync entries."""
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        for d in (64, 128):
+            hopper = dt != torch.float32 and d == 128
+            assert tflash._FWD_ENTRY[dt, d] == (
+                "hvd_flash_fwd" if hopper else "hvd_flash_fwd_mma")
+            assert tflash._BWD_ENTRY[dt, d] == (
+                ("hvd_flash_bwd_dq", "hvd_flash_bwd_dkv") if hopper else
+                ("hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma"))
+    assert set(tflash._FWD_ENTRY) == set(tflash._BWD_ENTRY)
+    assert {d for _, d in tflash._FWD_ENTRY} == {64, 128}
+
+
+@pytest.mark.parametrize("d", [16, 96, 256])
+def test_other_head_dims_raise_before_any_launch(monkeypatch, d):
+    """D outside {64, 128} raises ValueError naming the supported set, in
+    the forward and both backward wrappers, before the device is looked at
+    and before anything is built or launched."""
+    monkeypatch.setattr(tflash, "_launch", lambda *a: pytest.fail("launched"))
+    q = torch.zeros((4, 8, d), dtype=torch.bfloat16)
+    lse = torch.zeros((4, 8), dtype=torch.float32)
+    kw = dict(n_heads=4, n_kv_heads=4, causal=True)
+    for call in (lambda: tflash._flash_forward_cuda(q, q, q, **kw),
+                 lambda: tflash._flash_bwd_dq_cuda(q, q, q, q, lse, lse, **kw),
+                 lambda: tflash._flash_bwd_dkv_cuda(q, q, q, q, lse, lse,
+                                                    **kw)):
+        with pytest.raises(ValueError, match=rf"head dim {d}.*\(64, 128\)"):
+            call()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_forward_and_backward_at_head_dim_64_match_jax(causal):
+    """At the D = 64 kernels' tiles (64 × 64), L = 196 as in ViT-B/16 (three
+    full tiles and a ragged one of 4 rows), H = KVH: the plain forward and
+    backward equal JAX's ``_flash_forward``/``_flash_backward`` in interpret
+    mode at the same blocks, in f32 (summation order only)."""
+    b, h, l, d = 1, 2, 196, 64
+    rng = np.random.RandomState(64 + causal)
+    q, k, v, g = (rng.randn(b * h, l, d).astype(np.float32) for _ in range(4))
+    jkw = dict(n_heads=h, n_kv_heads=h, causal=causal, block_q=64,
+               block_k=64, interpret=True)
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    jo, jlse = jflash._flash_forward(jq, jk, jv, **jkw)
+    want = jflash._flash_backward(jq, jk, jv, jo, jlse, jg, **jkw)
+    tkw = dict(n_heads=h, n_kv_heads=h, causal=causal, block_q=64,
+               block_k=64)
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    to, tlse = tflash._flash_forward_reference(tq, tk, tv, **tkw)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=F32_ATOL)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse)[:, :l],
+                               atol=LSE_ATOL)
+    got = tflash._flash_backward_reference(tq, tk, tv, to, tlse, tg, **tkw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(a.numpy(), w, err_msg=name,
+                                   atol=BWD_F32_RTOL * float(np.abs(w).max()))

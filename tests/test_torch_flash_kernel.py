@@ -5,6 +5,9 @@ and skip without a GPU.  This file imports only torch and the port (no
 JAX), so it runs on a machine with the card and no JAX::
 
     python -m pytest --noconftest -m cuda tests/test_torch_flash_kernel.py
+
+Llama-3's head dim 128 (the Hopper kernels for bf16/f16) and the ViT's head
+dim 64 (the ``mma.sync`` kernels in every dtype).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 from horovod_tpu_torch.parallel import flash_attention as tflash
 
 H, KVH, D = 32, 8, 128            # Llama-3-8B attention heads
+VIT_HEADS = (12, 12, 64)          # ViT-B/16: 12 heads of 64, no GQA
 # o against the plain version at the kernel's own tiles, as in
 # chip_smoke.py: about two units in the last place of the storage dtype
 # relative to |o|; the LSE is f32 from exact products.
@@ -28,22 +32,24 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
 
 
-def _qkv(b, l, dtype, seed):
+def _qkv(b, l, dtype, seed, heads=(H, KVH, D)):
+    h, kvh, d = heads
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((b * H, l, D), generator=g, device="cuda").to(dtype)
-    k = torch.randn((b * KVH, l, D), generator=g, device="cuda").to(dtype)
-    v = torch.randn((b * KVH, l, D), generator=g, device="cuda").to(dtype)
+    q = torch.randn((b * h, l, d), generator=g, device="cuda").to(dtype)
+    k = torch.randn((b * kvh, l, d), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b * kvh, l, d), generator=g, device="cuda").to(dtype)
     return q, k, v
 
 
-def _check_forward(q, k, v, causal, block):
+def _check_forward(q, k, v, causal, block, heads=(H, KVH, D)):
+    h, kvh, _ = heads
     before = tflash.launches
-    o, lse = tflash._flash_forward_cuda(q, k, v, n_heads=H, n_kv_heads=KVH,
+    o, lse = tflash._flash_forward_cuda(q, k, v, n_heads=h, n_kv_heads=kvh,
                                         causal=causal)
     torch.cuda.synchronize()
     assert tflash.launches == before + 1
     o_ref, lse_ref = tflash._flash_forward_reference(
-        q, k, v, n_heads=H, n_kv_heads=KVH, causal=causal, block_q=block,
+        q, k, v, n_heads=h, n_kv_heads=kvh, causal=causal, block_q=block,
         block_k=block)
     atol, rtol = O_TOL[q.dtype]
     diff = (o.float() - o_ref.float()).abs()
@@ -84,18 +90,19 @@ BWD_RTOL = {torch.bfloat16: 2 ** -6, torch.float16: 2 ** -8,
 BWD_ATOL = 1e-4
 
 
-def _check_backward(b, l, causal, dtype, seed):
+def _check_backward(b, l, causal, dtype, seed, heads=(H, KVH, D)):
     """Both backward kernels (through their wrappers, each counting one
     launch) and the whole kernel backward against the plain versions, O and
     LSE from the forward kernel."""
+    h, kvh, d = heads
     rtol = BWD_RTOL[dtype]
-    q, k, v = _qkv(b, l, dtype, seed=seed)
+    q, k, v = _qkv(b, l, dtype, seed=seed, heads=heads)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    do = torch.randn((b * H, l, D), generator=g, device="cuda").to(dtype)
-    kw = dict(n_heads=H, n_kv_heads=KVH, causal=causal)
+    do = torch.randn((b * h, l, d), generator=g, device="cuda").to(dtype)
+    kw = dict(n_heads=h, n_kv_heads=kvh, causal=causal)
     o, lse = tflash._flash_forward_cuda(q, k, v, **kw)
     delta = tflash._delta(o, do)
-    lse = lse.view(b * H, l)
+    lse = lse.view(b * h, l)
     before = (tflash.dq_launches, tflash.dkv_launches)
     dq = tflash._flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
     dk_h, dv_h = tflash._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
@@ -147,3 +154,109 @@ def test_flash_bwd_f32_takes_the_mma_kernels_on_card(monkeypatch, causal):
     _check_backward(2, 200, causal, torch.float32, seed=11)
     assert set(f for f in launched if "bwd" in f) == {
         "hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma"}
+
+
+# Head dim 64, the ViT's: every dtype takes the mma.sync kernels (64 × 64
+# tiles), so the plain versions are blocked 64 × 64 for the forward.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("l", [1, 63, 65, 196, 1000])
+def test_flash_kernel_d64_matches_reference_on_card(l, causal, dtype):
+    """The forward at D = 64 (ViT-B/16 heads: 12 of 64, no GQA) against its
+    plain version at its 64 × 64 tiles, B = 2, tails on both sides of a
+    tile and the ViT's L = 196; and GQA 4/2 at D = 64."""
+    _need_card()
+    entries = []
+    launch = tflash._launch
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tflash, "_launch", lambda name, fn, *a: (
+            entries.append(fn), launch(name, fn, *a))[1])
+        _check_forward(*_qkv(2, l, dtype, seed=l, heads=VIT_HEADS), causal,
+                       block=64, heads=VIT_HEADS)
+        gqa = (4, 2, 64)
+        _check_forward(*_qkv(2, l, dtype, seed=l + 1, heads=gqa), causal,
+                       block=64, heads=gqa)
+    assert entries == ["hvd_flash_fwd_mma"] * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("l", [1, 63, 65, 196, 1000])
+def test_flash_bwd_kernels_d64_match_reference_on_card(monkeypatch, l, causal,
+                                                       dtype):
+    """The dQ and dK/dV kernels at D = 64 (the mma.sync kernels in every
+    dtype) against their plain versions, B = 2, ViT-B/16 heads."""
+    _need_card()
+    launched = []
+    launch = tflash._launch
+    monkeypatch.setattr(tflash, "_launch", lambda name, fn, *a: (
+        launched.append(fn), launch(name, fn, *a))[1])
+    _check_backward(2, l, causal, dtype, seed=l + 3, heads=VIT_HEADS)
+    assert set(f for f in launched if "bwd" in f) == {
+        "hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 96, 256])
+def test_flash_kernels_refuse_other_head_dims_on_card(d):
+    """A CUDA call at a head dim the kernels do not take raises; it never
+    takes the plain version."""
+    _need_card()
+    q, k, v = _qkv(1, 64, torch.bfloat16, seed=d, heads=(2, 2, d))
+    before = tflash.launches
+    with pytest.raises(ValueError, match="head dims"):
+        tflash._flash_forward_cuda(q, k, v, n_heads=2, n_kv_heads=2,
+                                   causal=False)
+    lse = torch.zeros((2, 64), device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        tflash._flash_bwd_dq_cuda(q, k, v, q, lse, lse, n_heads=2,
+                                  n_kv_heads=2, causal=False)
+    with pytest.raises(ValueError, match="head dims"):
+        tflash.flash_attention(q.view(1, 2, 64, d).transpose(1, 2),
+                               k.view(1, 2, 64, d).transpose(1, 2),
+                               v.view(1, 2, 64, d).transpose(1, 2),
+                               causal=False)
+    assert tflash.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, l, causal, dtype, heads", [
+    (1, 4096, True, torch.bfloat16, (H, KVH, D)),     # Llama training shape
+    (2, 1000, True, torch.float16, (H, KVH, D)),
+    (2, 200, True, torch.float32, (H, KVH, D)),
+    (64, 196, False, torch.bfloat16, VIT_HEADS),      # ViT-B/16
+    (2, 333, True, torch.float16, VIT_HEADS),
+    (2, 65, False, torch.float32, VIT_HEADS),
+], ids=["llama_train_bf16", "d128_f16", "d128_f32", "vit_b16_bf16",
+        "d64_f16", "d64_f32"])
+def test_flash_kernels_repeat_bit_for_bit_on_card(b, l, causal, dtype,
+                                                  heads):
+    """Each kernel owns its outputs (no atomics), so repeated launches on
+    the same inputs give the same bits; a race between a block's warps (a
+    missing barrier or mbarrier wait) shows as a launch that differs."""
+    _need_card()
+    h, kvh, d = heads
+    q, k, v = _qkv(b, l, dtype, seed=11, heads=heads)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    do = torch.randn((b * h, l, d), generator=g, device="cuda").to(dtype)
+    kw = dict(n_heads=h, n_kv_heads=kvh, causal=causal)
+
+    def run():
+        o, lse = tflash._flash_forward_cuda(q, k, v, **kw)
+        lse = lse.view(b * h, l)
+        delta = tflash._delta(o, do)
+        dq = tflash._flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+        return (o, lse, dq, *tflash._flash_bwd_dkv_cuda(q, k, v, do, lse,
+                                                        delta, **kw))
+
+    first = run()
+    for _ in range(30):
+        again = run()
+        for name, a, b_ in zip(("o", "lse", "dq", "dk", "dv"), first, again):
+            assert torch.equal(a, b_), f"{name} differs between launches"

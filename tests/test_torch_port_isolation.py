@@ -37,8 +37,15 @@ def test_port_modules_import_without_jax():
     mods = _modules()
     assert {"horovod_tpu_torch.serving", "horovod_tpu_torch.basics",
             "horovod_tpu_torch.optim.distributed_optimizer",
-            "horovod_tpu_torch.examples.llama_finetune"} <= set(mods)
-    assert len(mods) >= 22
+            "horovod_tpu_torch.examples.llama_finetune",
+            "horovod_tpu_torch.data", "horovod_tpu_torch.callbacks",
+            "horovod_tpu_torch.training", "horovod_tpu_torch.models.resnet",
+            "horovod_tpu_torch.models.vit", "horovod_tpu_torch.models.vgg",
+            "horovod_tpu_torch.models.inception",
+            "horovod_tpu_torch.models.mnist",
+            "horovod_tpu_torch.examples.mnist",
+            "horovod_tpu_torch.examples.synthetic_benchmark"} <= set(mods)
+    assert len(mods) >= 34
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
