@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``horovod_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-layers N] [--train-layers N] [--seed S]
+                          [--vit-bwd-ab]
 
 Phases, one JSON line each; any failure exits non-zero before the result:
 
@@ -50,10 +51,12 @@ Phases, one JSON line each; any failure exits non-zero before the result:
    with the plain one.
 
 8. ``kernel d64`` (run right after ``kernel flash_bwd``): the three
-   kernels at head dim 64, the ViT's, where every dtype takes the
-   ``mma.sync`` kernels: the ViT-B/16 shape (B=64, L=196, 12 heads,
-   non-causal) in bf16, f16 and f32, a causal case and tails, each held
-   against its plain version; at the ViT shape the times, bounds and SDPA.
+   kernels at head dim 64, the ViT's (the forward on the ``mma.sync``
+   kernel; dQ and dK/dV on the Hopper D = 64 kernels for bf16/f16 and the
+   ``mma.sync`` kernels for f32): the ViT-B/16 shape (B=64, L=196, 12
+   heads, non-causal) in bf16, f16 and f32, a causal case and tails, each
+   held against its plain version; at the ViT shape the times, bounds,
+   ``prev_ms`` and SDPA.
 9. ``train resnet101`` (``bench.py _bench_resnet``): ResNet-101 at full
    depth, batch 64 at 224 × 224 from ``synthetic_imagenet``, bf16 compute
    with f32 parameters and BN, ``SGD(0.01, momentum=0.9)`` through
@@ -65,8 +68,12 @@ Phases, one JSON line each; any failure exits non-zero before the result:
 10. ``train vit_b16`` (``bench.py _bench_vit`` with the flash kernels):
     ViT-B/16, bf16, ``attn_impl="flash"``, batch 64 at 224,
     ``AdamW(1e-3, weight_decay=1e-4)``, the same wrapper; each step must
-    launch the forward, dQ and dK/dV kernels 12 times; step 0's logits and
+    launch the forward, dQ and dK/dV kernels 12 times and the profiled
+    step must show the Hopper D = 64 backward kernels; step 0's logits and
     gradients are held against dense attention and the blockwise backward.
+    With ``--vit-bwd-ab``, an A/B in the same process: the timed steps
+    again with the backward on the ``mma.sync`` kernels and on the Hopper
+    kernels, in turns (images/s and the profiled idle share of each).
 11. ``train vgg16`` (BASELINE config 4, with its fusion buckets and
     allreduce bytes per step) and ``train inception_v3`` (299 × 299): batch
     64, one warm-up and two timed steps each.
@@ -268,20 +275,27 @@ def phase_build() -> None:
     ptxas = [ln.strip() for log in _build.build_logs.values()
              for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln
-             or "warning" in ln]
+             or _ptxas_warning(ln)]
     emit("build", ok=True, seconds=seconds, sources=_build.sources(),
          ptxas=ptxas)
     return {"seconds": seconds, "kernels": _ptxas_kernels(ptxas)}
 
 
+def _ptxas_warning(line: str) -> bool:
+    """A warning of ptxas's report, or one of its notes on wgmma (C7512,
+    C7519, C7520: an injected fence or serialized wgmma), which it prints
+    as ``info``."""
+    return "warning" in line or "(C75" in line
+
+
 def _ptxas_kernels(lines) -> dict:
     """``{mangled kernel name: {"registers": n, "spill_bytes": n,
-    "warnings": [...]}}`` (spill stores; ptxas's warnings that name the
-    kernel) from ``nvcc -Xptxas -v``'s report."""
+    "warnings": [...]}}`` (spill stores; ptxas's warnings and wgmma notes
+    that name the kernel) from ``nvcc -Xptxas -v``'s report."""
     out: dict[str, dict] = {}
     name = None
     for ln in lines:
-        if "warning" in ln:
+        if _ptxas_warning(ln):
             continue
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
@@ -291,7 +305,8 @@ def _ptxas_kernels(lines) -> dict:
         elif name and (used := re.search(r"Used (\d+) registers", ln)):
             out[name]["registers"] = int(used.group(1))
     for name, v in out.items():
-        v["warnings"] = [ln for ln in lines if "warning" in ln and name in ln]
+        v["warnings"] = [ln for ln in lines
+                         if _ptxas_warning(ln) and name in ln]
     return out
 
 
@@ -524,44 +539,42 @@ def _time_backward(q, k, v, do, lse, delta, b, l, causal, tname,
                    heads=ATTN_HEADS) -> dict:
     """Times of the two backward kernels at one shape, each as the forward
     is timed: through its wrapper (device time, CUDA-event loop time, host
-    time per call), the earlier mma.sync kernel on the same inputs
-    (``prev``, device time), the plain version, the bound; and, for the
-    pair, SDPA's backward in device time (``library_ms``).  ``prev`` only
-    where the wrappers take the Hopper kernels."""
+    time per call), the earlier mma.sync kernel on the same inputs through
+    the same wrapper (``prev``: device time and host time per call, the
+    route switched with ``_mma_backward``; the host times in turns), the
+    plain version, the bound;
+    and, for the pair, SDPA's backward in device time (``library_ms``).
+    ``prev`` only where the wrappers take the Hopper kernels."""
     import torch
 
     from horovod_tpu_torch.parallel import flash_attention as fa
 
     H, KVH, D = heads
-    hopper = fa._BWD_ENTRY[q.dtype, D][0] != "hvd_flash_bwd_dq_mma"
+    hopper = fa._BWD_ENTRY[q.dtype, D] != fa._MMA_BWD
     kw = dict(n_heads=H, n_kv_heads=KVH, causal=causal)
     blk = dict(block_q=min(512, l), block_k=min(512, l))
-    prev_out = [torch.empty_like(q) for _ in range(3)]
-
-    def prev(entry, outs):
-        return lambda: fa._launch("flash_bwd", entry,
-                                  (q, k, v, do, lse, delta, *outs), q, H,
-                                  KVH, causal)
 
     out = {}
-    for kname, fn, prev_fn, plain, outputs, products in (
+    for kname, fn, plain, outputs, products in (
             ("dq", lambda: fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta,
                                                  **kw),
-             prev("hvd_flash_bwd_dq_mma", prev_out[:1]),
              lambda: fa._flash_bwd_dq_reference(q, k, v, do, lse, delta,
                                                 **kw, **blk), 1, 3),
             ("dkv", lambda: fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
                                                    **kw),
-             prev("hvd_flash_bwd_dkv_mma", prev_out[1:]),
              lambda: fa._flash_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                  **kw, **blk), 2, 4)):
         r = {}
         r["ms"], r["kernel_names"] = device_ms(fn)
         r["wall_ms"] = time_ms(fn)
-        r["host_us_per_call"] = host_us(fn)
         if hopper:
-            r["prev_ms"], r["prev_names"] = device_ms(prev_fn)
+            with _mma_backward(q.dtype, D):
+                r["prev_ms"], r["prev_names"] = device_ms(fn)
             r["speedup_vs_prev"] = r["prev_ms"] / r["ms"]
+            r["host_us_per_call"], r["prev_host_us_per_call"] = _host_us_ab(
+                fn, q.dtype, D)
+        else:
+            r["host_us_per_call"] = host_us(fn)
         r["plain_ms"] = time_ms(plain, reps=3, inner=1, warmup=1)
         r["bound_ms"], r["bound_by"] = _bwd_bound(
             b, H, KVH, l, D, causal, q.element_size(), tname, products,
@@ -572,6 +585,36 @@ def _time_backward(q, k, v, do, lse, delta, b, l, causal, tname,
     out["library_ms"], out["library_names"] = _sdpa_backward_ms(
         q, k, v, do, b, H, KVH, l, D, causal)
     return out
+
+
+@contextlib.contextmanager
+def _mma_backward(dtype, head_dim: int):
+    """Routes the backward wrappers at (dtype, head dim) to the mma.sync
+    kernels while the block runs: the yardstick of ``prev_ms`` and of the
+    ViT-B/16 step's A/B."""
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    key = (dtype, head_dim)
+    entries = fa._BWD_ENTRY[key]
+    fa._BWD_ENTRY[key] = fa._MMA_BWD
+    try:
+        yield
+    finally:
+        fa._BWD_ENTRY[key] = entries
+
+
+def _host_us_ab(fn, dtype, head_dim: int, rounds: int = 25, n: int = 10):
+    """Host time per call of a backward wrapper on its route and on the
+    mma.sync route, in short turns (``n`` calls of each, the first route
+    alternating), since the host's clock drifts by more than the routes
+    differ: the median of ``rounds`` turns of each."""
+    times = {False: [], True: []}            # by "on the mma.sync route"
+    for i in range(rounds):
+        for mma in (bool(i % 2), not i % 2):
+            with (_mma_backward(dtype, head_dim) if mma
+                  else contextlib.nullcontext()):
+                times[mma].append(host_us(fn, n))
+    return statistics.median(times[False]), statistics.median(times[True])
 
 
 def _sdpa_backward_ms(q, k, v, do, b, h, kvh, l, d, causal):
@@ -610,12 +653,14 @@ VIT_SHAPE = ("vit_b16_b64_l196", 64, 196, False)
 
 
 def phase_kernel_d64(seed: int) -> dict:
-    """The three kernels at head dim 64, where every dtype takes the
-    mma.sync kernels (64 × 64 tiles): forward, dQ and dK/dV against their
+    """The three kernels at head dim 64 (64 × 64 tiles): the forward (the
+    mma.sync kernel in every dtype), dQ and dK/dV (the Hopper D = 64
+    kernels for bf16/f16, the mma.sync kernels for f32) against their
     plain versions (the forward blocked 64 × 64 as the kernel tiles) with
     the D = 128 phases' tolerances, at the ViT-B/16 shape in bf16, f16 and
     f32, one causal case and tails L ∈ {1, 63, 65, 1000}; at the ViT shape
-    in bf16 the kernels' times, bounds and SDPA's forward and backward."""
+    in bf16 the kernels' times, bounds, ``prev_ms`` for the backward pair
+    and SDPA's forward and backward."""
     import torch
 
     from horovod_tpu_torch.parallel import flash_attention as fa
@@ -866,6 +911,22 @@ _KERNEL_KINDS = (
 # The kernels the bf16 backward entries launch: the train step's profile
 # must show these and not the mma.sync kernels.
 BWD_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+# The kernel behind each entry a bf16 route can take at D = 64: its name in
+# the profile and in ptxas's report, the bf16 D = 64 instance's template
+# arguments in the mangled name, and the design (the source is
+# ``flash_attention._LIBRARY``'s).
+_ENTRY_KERNELS = {
+    "hvd_flash_fwd_mma": ("flash_fwd_mma_kernel", "I13__nv_bfloat16Li64E",
+                          "cuda mma.sync"),
+    "hvd_flash_bwd_dq_mma": ("flash_bwd_dq_mma_kernel",
+                             "I13__nv_bfloat16Li64E", "cuda mma.sync"),
+    "hvd_flash_bwd_dkv_mma": ("flash_bwd_dkv_mma_kernel",
+                              "I13__nv_bfloat16Li64E", "cuda mma.sync"),
+    "hvd_flash_bwd_dq_d64": ("flash_bwd_dq_d64_kernel", "I13__nv_bfloat16",
+                             "cuda wgmma+tma"),
+    "hvd_flash_bwd_dkv_d64": ("flash_bwd_dkv_d64_kernel", "I13__nv_bfloat16",
+                              "cuda wgmma+tma"),
+}
 
 
 def _device_breakdown(prof, wall_s: float) -> dict:
@@ -1126,7 +1187,8 @@ def _vision_train(name: str, model, opt, batch, *, warmup: int, timed: int,
     ``broadcast_optimizer_state``, ``DistributedOptimizer``,
     ``make_train_step``; timed, with the checks every vision path shares
     (finite losses that fall on the repeated batch), the checks in
-    ``extra["checks"]`` and those ``after()`` returns once the steps ran."""
+    ``extra["checks"]`` and, once the steps ran, ``after(step, run)``'s
+    ``"checks"`` (its other keys join the phase's line)."""
     import numpy as np
 
     from horovod_tpu_torch import basics
@@ -1149,8 +1211,10 @@ def _vision_train(name: str, model, opt, batch, *, warmup: int, timed: int,
         out["model_flop_share_of_989T"] = flops / run["step_s"] / PEAK_BF16
     checks = {"finite": bool(np.isfinite(run["losses"]).all()),
               "decreasing": run["losses"][-1] < run["losses"][0]}
+    late = after(step, run) if after else {}
     out["checks"] = {**checks, **out.pop("checks", {}),
-                     **(after() if after else {})}
+                     **late.pop("checks", {})}
+    out.update(late)
     out["ok"] = all(out["checks"].values())
     emit(name, **out)
     if not out["ok"]:
@@ -1176,11 +1240,11 @@ def phase_resnet101(seed: int) -> dict:
              if hasattr(m, "running_mean")]
     opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
 
-    def stats_moved():
+    def stats_moved(step, run):
         moved = [m.running_mean for m in model.modules()
                  if hasattr(m, "running_mean")]
-        return {"bn_stats_moved": all(not torch.equal(a, b)
-                                      for a, b in zip(stats, moved))}
+        return {"checks": {"bn_stats_moved": all(
+            not torch.equal(a, b) for a, b in zip(stats, moved))}}
 
     out = _vision_train("train resnet101", model, opt, batch, warmup=2,
                         timed=8, profile=True, flops=flops, extra={},
@@ -1221,13 +1285,46 @@ def _grad_distance(g, ref) -> dict:
             "worst_leaf": max(leaves, key=leaves.get)}
 
 
-def phase_vit_b16(seed: int) -> dict:
+def _vit_bwd_route_ab(step, model, batch, run) -> dict:
+    """The ViT-B/16 step's A/B of the backward's route: the same steps with
+    the backward on the mma.sync kernels and on the routed ones, in turns
+    (mma, routed, mma, routed after the routed ``run``), each run's
+    images/s and profiled idle share, and the medians by route."""
+    import torch
+
+    runs = [("routed", run)]
+    for route in ("mma", "routed", "mma", "routed"):
+        ctx = (_mma_backward(torch.bfloat16, 64) if route == "mma"
+               else contextlib.nullcontext())
+        with ctx:
+            runs.append((route, _run_steps(step, model, batch, 2, 8, True)))
+    ab = {"runs": [], "images_per_s": {}, "device_idle_share": {}}
+    for route, r in runs:
+        prof = r["profiled_step"]
+        ab["runs"].append({
+            "route": route, "images_per_s": r["images_per_s"],
+            "step_s": r["step_s"],
+            "device_idle_share": prof["device_idle_share"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "flash_bwd_ms": {k: v for k, v in prof["ms_by_kind"].items()
+                             if k.startswith("flash_bwd")}})
+    for key in ("images_per_s", "device_idle_share"):
+        for route in ("routed", "mma"):
+            got = [x[key] for x in ab["runs"]
+                   if x["route"] == route and x[key] is not None]
+            ab[key][route] = statistics.median(got) if got else None
+    return ab
+
+
+def phase_vit_b16(seed: int, ab: bool = False) -> dict:
     """``bench.py _bench_vit`` with the flash kernels: ViT-B/16, bf16,
     ``attn_impl="flash"`` (head dim 64, L = 196, non-causal), batch 64 at
     224, ``AdamW(1e-3, weight_decay=1e-4)``.  Each step must launch the
-    forward, dQ and dK/dV kernels once per block; step 0's logits and
-    gradients are held against dense attention and the blockwise backward
-    on the same weights."""
+    forward, dQ and dK/dV kernels once per block, and the profiled step
+    must show the backward kernels the bf16 route names; step 0's logits
+    and gradients are held against dense attention and the blockwise
+    backward on the same weights.  ``ab`` adds the A/B of the backward's
+    route (``_vit_bwd_route_ab``)."""
     import torch
 
     from horovod_tpu_torch import basics
@@ -1271,8 +1368,26 @@ def phase_vit_b16(seed: int) -> dict:
              "grad_norm_rtol": VIT_GRAD_NORM_RTOL,
              "grad_leaf_rtol": VIT_GRAD_LEAF_RTOL,
              "expected_launches_per_step": want, "checks": checks}
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    def routed_and_ab(step, run):
+        """The profiled step went through the kernels ``_BWD_ENTRY`` names
+        for bf16 at D = 64; with ``ab``, the A/B of the backward's route."""
+        want_bwd = [_ENTRY_KERNELS[e][0]
+                    for e in fa._BWD_ENTRY[torch.bfloat16, 64]]
+        names = run["profiled_step"]["flash_kernel_names"]
+        bwd_names = [n for n in names if "flash_bwd" in n]
+        routed = (all(any(k in n for n in bwd_names) for k in want_bwd)
+                  and all(any(k in n for k in want_bwd) for n in bwd_names))
+        late = {"checks": {"bwd_kernels_routed": routed},
+                "bwd_route": list(fa._BWD_ENTRY[torch.bfloat16, 64])}
+        if ab:
+            late["ab_bwd_route"] = _vit_bwd_route_ab(step, model, batch, run)
+        return late
+
     out = _vision_train("train vit_b16", model, opt, batch, warmup=2,
-                        timed=8, profile=True, flops=flops, extra=extra)
+                        timed=8, profile=True, flops=flops, extra=extra,
+                        after=routed_and_ab)
     if not all(p == want for p in out["launches"]):
         raise PhaseError(f"train vit_b16: launches per step "
                          f"{out['launches']}, want {want}")
@@ -1382,6 +1497,10 @@ def main(argv=None) -> int:
                     help="depth of the train phase (full width; 8 fits "
                          "f32 weights, gradients and AdamW moments in 80 GB)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--vit-bwd-ab", action="store_true",
+                    help="after the ViT-B/16 phase, time its step with the "
+                         "backward on the mma.sync kernels and on the routed "
+                         "ones, in turns")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1425,7 +1544,7 @@ def main(argv=None) -> int:
         phase = "train resnet101"
         phase_resnet101(args.seed)
         phase = "train vit_b16"
-        vit = phase_vit_b16(args.seed)
+        vit = phase_vit_b16(args.seed, args.vit_bwd_ab)
         phase = "train vgg16"
         phase_vgg16(args.seed)
         phase = "train inception_v3"
@@ -1469,9 +1588,9 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, train, kern64,
     and its times at its main shape (the generate prefill for the forward,
     the Llama training shape for the backward pair, the ViT-B/16 shape at
     D = 64).  ``ms`` is device time; ``prev_ms`` the earlier mma.sync kernel
-    (same run, same inputs); with the build's registers and spills and the
-    block's shared memory.  The forward's row adds the same times at the
-    training shape."""
+    (same run, same inputs); with the build's registers, spills and ptxas
+    warnings and the Hopper kernels' shared memory a block.  The forward's
+    row adds the same times at the training shape."""
     from horovod_tpu_torch.parallel import flash_attention as fa
 
     fwd = kern["cases"][0]
@@ -1511,38 +1630,48 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, train, kern64,
             "max_abs_err": max(c[f"{g}_max_abs_err"] for c in kern_bwd["cases"]
                                for g in grads if c["dtype"] == "bf16"),
             **{k: t[k] for k in ("ms", "wall_ms", "host_us_per_call",
-                                 "prev_ms", "plain_ms", "bound_ms",
+                                 "prev_ms", "prev_host_us_per_call",
+                                 "speedup_vs_prev", "plain_ms", "bound_ms",
                                  "bound_by", "tflops", "share_of_bound")},
             # The backward pair's yardstick (SDPA's backward), on both rows.
             "library_ms": bwd["library_ms"],
             **_ptx(build, kernel),
             "smem_bytes": fa.smem_bytes("flash_bwd", entry),
         })
-    # D = 64: the mma.sync kernels, timed at the ViT-B/16 shape.
+    # D = 64, timed at the ViT-B/16 shape: the kernels the bf16 entries
+    # route to (design, ptxas report and source from the route taken).
+    import torch
+
     vfwd = next(c for c in kern64["fwd"] if "ms" in c)
     vbwd = next(c for c in kern64["bwd"] if "times" in c)["times"]
     keys = ("ms", "wall_ms", "host_us_per_call", "plain_ms", "bound_ms",
             "bound_by", "tflops", "share_of_bound")
-    for name, src_file, line, grads, t, lib, kernel in (
-            ("flash_fwd_d64", "flash_fwd.cu", 62, ("o",), vfwd,
-             vfwd["library_ms"], "flash_fwd_mma_kernel"),
-            ("flash_bwd_dq_d64", "flash_bwd.cu", 188, ("dq",), vbwd["dq"],
-             vbwd["library_ms"], "flash_bwd_dq_mma_kernel"),
-            ("flash_bwd_dkv_d64", "flash_bwd.cu", 229, ("dk", "dv"),
-             vbwd["dkv"], vbwd["library_ms"], "flash_bwd_dkv_mma_kernel")):
-        kernel += "I13__nv_bfloat16Li64E"      # the bf16, D = 64 instance
+    prev_keys = ("prev_ms", "prev_host_us_per_call", "speedup_vs_prev")
+    dq_entry, dkv_entry = fa._BWD_ENTRY[torch.bfloat16, 64]
+    for name, entry, line, grads, t, lib in (
+            ("flash_fwd_d64", fa._FWD_ENTRY[torch.bfloat16, 64], 62, ("o",),
+             vfwd, vfwd["library_ms"]),
+            ("flash_bwd_dq_d64", dq_entry, 188, ("dq",), vbwd["dq"],
+             vbwd["library_ms"]),
+            ("flash_bwd_dkv_d64", dkv_entry, 229, ("dk", "dv"), vbwd["dkv"],
+             vbwd["library_ms"])):
+        kernel, instance, design = _ENTRY_KERNELS[entry]
         cases = kern64["fwd"] if grads == ("o",) else kern64["bwd"]
-        rows.append({
-            "name": name, "route": "cuda", "design": "cuda mma.sync",
-            "source": f"horovod_tpu_torch/csrc/{src_file}",
+        row = {
+            "name": name, "route": "cuda", "design": design, "entry": entry,
+            "source": f"horovod_tpu_torch/csrc/{fa._LIBRARY[entry]}.cu",
             "replaces": f"{src}:{line}",
             "head_dim": 64, "shape": VIT_SHAPE[0],
             "launches": vit["launches_total"][name.removesuffix("_d64")],
             "max_abs_err": max(c[f"{g}_max_abs_err"] for c in cases
                                for g in grads if c["dtype"] == "bf16"),
             **{k: t[k] for k in keys}, "library_ms": lib,
-            **_ptx(build, kernel),
-        })
+            **{k: t[k] for k in prev_keys if k in t},
+            **_ptx(build, kernel + instance),
+        }
+        if design == "cuda wgmma+tma":
+            row["smem_bytes"] = fa.smem_bytes(fa._LIBRARY[entry], entry)
+        rows.append(row)
     return rows
 
 

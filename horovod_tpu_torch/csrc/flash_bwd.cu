@@ -64,8 +64,9 @@
 //
 // `hvd_flash_bwd_dq_mma`, `hvd_flash_bwd_dkv_mma` (bf16, fp16, f32; D = 64
 // or 128): the earlier design, kept for f32 (wgmma's only 32-bit path is
-// TF32, which would break the f32 contract), for D = 64 in every dtype (the
-// ViT path, L = 196 at 224 px) and as chip_smoke.py's same-run yardstick.
+// TF32, which would break the f32 contract) at both head widths, and as
+// chip_smoke.py's same-run yardstick.  bf16/fp16 at D = 64 (the ViT path)
+// take the Hopper kernels of flash_bwd_d64.cu.
 //
 //   dQ: one block per (b·h, 64-row query tile), four warps of 16 query
 //   rows.  Q and dO stay in shared memory; the block walks the K/V tiles

@@ -1,5 +1,5 @@
 // Tile helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu).
+// flash_bwd.cu, flash_bwd_d64.cu).
 //
 // Ampere-style building blocks: storage-dtype conversions, the mma.sync
 // m16n8k16 product with its f32 FMA twin, and the zero-filling tile load.
@@ -9,9 +9,9 @@
 // Hopper building blocks (sm_90a): 3-D TMA tensor maps over [rows, L, D]
 // with 128-byte swizzle, encoded on the host through the driver entry point
 // (no -lcuda); TMA loads and stores; mbarrier init / expect-tx / arrive /
-// wait; the wgmma matrix descriptor; wgmma.mma_async m64n128k16 with A from
-// shared memory or from registers, and m64n64k16 from shared memory;
-// setmaxnreg.  A 128-byte-swizzled tile is
+// wait; the wgmma matrix descriptor; wgmma.mma_async m64n128k16 and
+// m64n64k16 with A from shared memory or from registers, and m64n32k16
+// from shared memory; setmaxnreg.  A 128-byte-swizzled tile is
 // stored as panels of 64 columns (128 bytes of a 16-bit dtype), each
 // [rows][128 B], 1024-byte aligned, as TMA writes it and wgmma reads it.
 
@@ -294,6 +294,9 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
   "%58, %59, %60, %61, %62, %63}"
 #define HVD_ACC32 HVD_ACC8(0), HVD_ACC8(8), HVD_ACC8(16), HVD_ACC8(24)
+#define HVD_ACC16 HVD_ACC8(0), HVD_ACC8(8)
+#define HVD_REGS16                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define HVD_REGS32                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
@@ -303,6 +306,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
                "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "   \
                HVD_REGS32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"                  \
                : HVD_ACC32 : "l"(da), "l"(db), "r"(accumulate))
+#define HVD_WGMMA_SS32(TY)                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "   \
+               HVD_REGS16 ", %16, %17, p, 1, 1, 0, 0;\n}\n"                  \
+               : HVD_ACC16 : "l"(da), "l"(db), "r"(accumulate))
 #define HVD_WGMMA_SS(TY)                                                     \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                  \
                "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
@@ -313,6 +321,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
                "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
                HVD_REGS64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"    \
                : HVD_ACC64 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),    \
+                 "l"(db), "r"(accumulate))
+#define HVD_WGMMA_RS64(TY)                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "   \
+               HVD_REGS32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"    \
+               : HVD_ACC32 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),    \
                  "l"(db), "r"(accumulate))
 
 // d[64x128] (+)= A[64x16] · B[16x128], f32 accumulation, both operands in
@@ -358,6 +372,36 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
   }
 }
 
+// d[64x32] (+)= A[64x16] · B[16x32], both operands in shared memory and
+// K-major: the 32-query halves of the head-dim-64 dK/dV kernel's Sᵀ and
+// dPᵀ.  The accumulator layout is wgmma_ss's with j = 0..3.
+template <typename T>
+__device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    HVD_WGMMA_SS32("bf16");
+  } else {
+    HVD_WGMMA_SS32("f16");
+  }
+}
+
+// d[64x64] += A[64x16] · B[16x64], A from registers (wgmma_rs's fragment)
+// and B MN-major in shared memory: the products of the head-dim-64
+// backward (dV += P'ᵀ·dO, dK += dS'ᵀ·Q, dQ += dS'·K).  The accumulator
+// layout is wgmma_ss64's.
+template <typename T>
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    HVD_WGMMA_RS64("bf16");
+  } else {
+    HVD_WGMMA_RS64("f16");
+  }
+}
+
+#undef HVD_WGMMA_RS64
+#undef HVD_WGMMA_SS32
 #undef HVD_WGMMA_RS
 #undef HVD_WGMMA_SS
 #undef HVD_WGMMA_SS64
@@ -365,6 +409,8 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
 #undef HVD_REGS32
 #undef HVD_ACC64
 #undef HVD_ACC32
+#undef HVD_ACC16
+#undef HVD_REGS16
 #undef HVD_ACC8
 
 // Two f32 values rounded to the 16-bit dtype and packed (lo in the low half).
@@ -411,9 +457,33 @@ inline EncodeTiledFn encode_tiled_fn() {
 // A 3-D map over a contiguous [outer, L, D] tensor of a 16-bit dtype, boxes
 // of [1, box_rows, 64] with 128-byte swizzle.  Out-of-range rows (>= L, by
 // head) read as zeros and are not written.  Returns a cudaError_t.
+//
+// A map is a function of these arguments alone, so the last MAP_CACHE maps
+// encoded on the calling thread are kept and reused: the backward's two
+// launches share q, k, v and dO, and a training step finds its tensors at
+// the same addresses as the step before.  This keeps the encoding off the
+// host time of a call.
+constexpr int MAP_CACHE = 64;
+
 template <typename T>
 int encode_rows_map(CUtensorMap* map, const void* base, int outer, int L,
                     int D, int box_rows) {
+  struct Key {
+    const void* base;
+    int outer, L, D, box_rows;
+  };
+  thread_local Key keys[MAP_CACHE] = {};
+  thread_local CUtensorMap maps[MAP_CACHE];
+  thread_local int next = 0;
+  for (int j = 1; j <= MAP_CACHE; ++j) {         // the newest first
+    const int i = (next - j + MAP_CACHE) % MAP_CACHE;
+    const Key& k = keys[i];
+    if (k.base == base && k.outer == outer && k.L == L && k.D == D &&
+        k.box_rows == box_rows) {
+      *map = maps[i];
+      return 0;
+    }
+  }
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)outer};
@@ -429,7 +499,11 @@ int encode_rows_map(CUtensorMap* map, const void* base, int outer, int L,
                       CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  keys[next] = {base, outer, L, D, box_rows};
+  maps[next] = *map;
+  next = (next + 1) % MAP_CACHE;
+  return 0;
 }
 
 }  // namespace hvd_flash

@@ -9,12 +9,13 @@ Port of ``horovod_tpu/parallel/flash_attention.py`` (``_flash_forward``,
   ``hvd_flash_fwd``, the Hopper kernel (TMA, wgmma), for bf16 and fp16 at
   head dim 128; ``hvd_flash_fwd_mma``, the ``mma.sync``/FMA kernel, for f32
   and for head dim 64 in every dtype;
-* ``_flash_dq_kernel`` → ``csrc/flash_bwd.cu`` (:func:`_flash_bwd_dq_cuda`):
-  ``hvd_flash_bwd_dq``, the Hopper kernel, for bf16 and fp16 at head dim
-  128; ``hvd_flash_bwd_dq_mma`` for f32 and for head dim 64;
-* ``_flash_dkv_kernel`` → ``csrc/flash_bwd.cu`` (:func:`_flash_bwd_dkv_cuda`):
-  ``hvd_flash_bwd_dkv`` for bf16 and fp16 at head dim 128;
-  ``hvd_flash_bwd_dkv_mma`` for f32 and for head dim 64.
+* ``_flash_dq_kernel`` → :func:`_flash_bwd_dq_cuda`: the Hopper kernels
+  for bf16 and fp16, ``hvd_flash_bwd_dq`` (``csrc/flash_bwd.cu``) at head
+  dim 128 and ``hvd_flash_bwd_dq_d64`` (``csrc/flash_bwd_d64.cu``) at 64;
+  ``hvd_flash_bwd_dq_mma`` (``csrc/flash_bwd.cu``) for f32;
+* ``_flash_dkv_kernel`` → :func:`_flash_bwd_dkv_cuda`: likewise
+  ``hvd_flash_bwd_dkv``, ``hvd_flash_bwd_dkv_d64`` and
+  ``hvd_flash_bwd_dkv_mma``.
 
 The kernels take head dims 64 (every ViT) and 128 (every Llama-3); a CUDA
 call at any other head dim raises ``ValueError``.
@@ -257,23 +258,32 @@ _SIGNATURES = {
     "flash_fwd": {"hvd_flash_fwd": 5, "hvd_flash_fwd_mma": 5},
     "flash_bwd": {"hvd_flash_bwd_dq": 7, "hvd_flash_bwd_dkv": 8,
                   "hvd_flash_bwd_dq_mma": 7, "hvd_flash_bwd_dkv_mma": 8},
+    "flash_bwd_d64": {"hvd_flash_bwd_dq_d64": 7, "hvd_flash_bwd_dkv_d64": 8},
 }
-# Entries by (dtype, head dim): the Hopper kernels (wgmma, whose only 32-bit
-# path is TF32) take the 16-bit types at D = 128; f32, and D = 64 in every
-# dtype, take the mma.sync/FMA kernels.
+_LIBRARY = {fn: lib for lib, fns in _SIGNATURES.items() for fn in fns}
+# Entries by (dtype, head dim).  The Hopper kernels (wgmma, whose only
+# 32-bit path is TF32) take the 16-bit types: the forward at D = 128, the
+# backward pair at D = 128 (``flash_bwd``) and D = 64 (``flash_bwd_d64``).
+# f32, and the forward at D = 64, take the mma.sync/FMA kernels.
 _HOPPER_FWD = "hvd_flash_fwd"
-_HOPPER_BWD = ("hvd_flash_bwd_dq", "hvd_flash_bwd_dkv")
+_HOPPER_BWD = {128: ("hvd_flash_bwd_dq", "hvd_flash_bwd_dkv"),
+               64: ("hvd_flash_bwd_dq_d64", "hvd_flash_bwd_dkv_d64")}
 _MMA_FWD = "hvd_flash_fwd_mma"
 _MMA_BWD = ("hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma")
 _FWD_ENTRY = {(dt, d): _HOPPER_FWD if dt != torch.float32 and d == 128
               else _MMA_FWD for dt in _DTYPE_CODE for d in _HEAD_DIMS}
 _BWD_ENTRY = {  # (dtype, D) -> (dQ entry, dK/dV entry)
-    (dt, d): _HOPPER_BWD if dt != torch.float32 and d == 128 else _MMA_BWD
+    (dt, d): _MMA_BWD if dt == torch.float32 else _HOPPER_BWD[d]
     for dt in _DTYPE_CODE for d in _HEAD_DIMS}
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _kernel_lib(name: str) -> ctypes.CDLL:
-    """``csrc/<name>.cu`` built and loaded, its C signatures declared."""
+    """``csrc/<name>.cu`` built and loaded, its C signatures declared
+    (once per library)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     from horovod_tpu_torch import _build
 
     lib = _build.load(name)
@@ -283,6 +293,7 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
         f.restype = _INT
     lib.hvd_cuda_error_string.argtypes = [_INT]
     lib.hvd_cuda_error_string.restype = ctypes.c_char_p
+    _libs[name] = lib
     return lib
 
 
@@ -346,29 +357,30 @@ def _check_bwd_inputs(q, k, v, do, lse, delta, n_heads, n_kv_heads):
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, n_heads: int,
                        n_kv_heads: int, causal: bool):
-    """Launch the dQ kernel of ``csrc/flash_bwd.cu`` for q's dtype and head
-    dim (``_BWD_ENTRY``): dQ [B·H, L, D] in q's dtype from q, k, v, dO, the
-    forward's LSE and Δ ([B·H, L] f32)."""
+    """Launch the dQ kernel for q's dtype and head dim (``_BWD_ENTRY``):
+    dQ [B·H, L, D] in q's dtype from q, k, v, dO, the forward's LSE and Δ
+    ([B·H, L] f32)."""
     global dq_launches
     _check_bwd_inputs(q, k, v, do, lse, delta, n_heads, n_kv_heads)
     dq = torch.empty_like(q)
-    _launch("flash_bwd", _BWD_ENTRY[q.dtype, q.shape[2]][0],
-            (q, k, v, do, lse, delta, dq), q, n_heads, n_kv_heads, causal)
+    entry = _BWD_ENTRY[q.dtype, q.shape[2]][0]
+    _launch(_LIBRARY[entry], entry, (q, k, v, do, lse, delta, dq), q,
+            n_heads, n_kv_heads, causal)
     dq_launches += 1
     return dq
 
 
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, n_heads: int,
                         n_kv_heads: int, causal: bool):
-    """Launch the dK/dV kernel of ``csrc/flash_bwd.cu`` for q's dtype and
-    head dim (``_BWD_ENTRY``): dK and dV per *query* head,
-    ``([B·H, L, D], [B·H, L, D])`` in k's dtype, for :func:`_group_sum`."""
+    """Launch the dK/dV kernel for q's dtype and head dim (``_BWD_ENTRY``):
+    dK and dV per *query* head, ``([B·H, L, D], [B·H, L, D])`` in k's
+    dtype, for :func:`_group_sum`."""
     global dkv_launches
     _check_bwd_inputs(q, k, v, do, lse, delta, n_heads, n_kv_heads)
     dk_h, dv_h = torch.empty_like(q), torch.empty_like(q)
-    _launch("flash_bwd", _BWD_ENTRY[q.dtype, q.shape[2]][1],
-            (q, k, v, do, lse, delta, dk_h, dv_h), q, n_heads, n_kv_heads,
-            causal)
+    entry = _BWD_ENTRY[q.dtype, q.shape[2]][1]
+    _launch(_LIBRARY[entry], entry, (q, k, v, do, lse, delta, dk_h, dv_h), q,
+            n_heads, n_kv_heads, causal)
     dkv_launches += 1
     return dk_h, dv_h
 

@@ -8,13 +8,15 @@ Hopper kernels' tiles, on the CPU.
   arguments on the card.
 * ``_flash_forward_cuda`` sends bf16/fp16 to ``hvd_flash_fwd`` (the Hopper
   kernel) and f32 to ``hvd_flash_fwd_mma``; the backward wrappers send
-  bf16/fp16 to ``hvd_flash_bwd_dq``/``hvd_flash_bwd_dkv`` and f32 to their
-  ``_mma`` entries; with ``_launch`` replaced.
+  bf16/fp16 to ``hvd_flash_bwd_dq``/``hvd_flash_bwd_dkv`` at head dim 128
+  and to ``hvd_flash_bwd_dq_d64``/``hvd_flash_bwd_dkv_d64`` at 64, and f32
+  to their ``_mma`` entries; with ``_launch`` replaced.
 * The plain forward blocked 128 × 128, as the Hopper kernel tiles, against
   the JAX ``_flash_forward`` (the Pallas kernel in interpret mode) at the
   same blocks: ragged L, GQA with H=4, KVH=2.  The plain dQ and dK/dV
   blocked 64 × 64, as the Hopper backward kernels tile, against the JAX
-  ``_flash_backward`` the same way, at the kernels' head width D = 128.
+  ``_flash_backward`` the same way, at the kernels' head widths D = 128
+  and, in bf16 with GQA, D = 64.
 """
 
 from __future__ import annotations
@@ -60,7 +62,9 @@ def test_every_launch_entry_has_a_signature_row():
     ("flash_fwd", "hvd_flash_fwd"), ("flash_fwd", "hvd_flash_fwd_mma"),
     ("flash_bwd", "hvd_flash_bwd_dq"), ("flash_bwd", "hvd_flash_bwd_dkv"),
     ("flash_bwd", "hvd_flash_bwd_dq_mma"),
-    ("flash_bwd", "hvd_flash_bwd_dkv_mma")])
+    ("flash_bwd", "hvd_flash_bwd_dkv_mma"),
+    ("flash_bwd_d64", "hvd_flash_bwd_dq_d64"),
+    ("flash_bwd_d64", "hvd_flash_bwd_dkv_d64")])
 def test_signature_row_matches_the_source(lib, entry):
     params = _launch_entries()[(lib, entry)][:-1]       # the stream last
     pointers = [p for p in params if "*" in p]
@@ -176,7 +180,20 @@ def test_plain_backward_at_kernel_tiles_matches_jax(b, l, causal, dtype):
     130 = 2·64 + 2, 65 = 64 + 1), D = 128, GQA with H=4, KVH=2: the plain
     dQ and the group-summed plain dK/dV equal JAX's ``_flash_backward`` at
     the same blocks, on the same q/k/v/dO and JAX's own O and LSE."""
-    h, kvh, d = 4, 2, 128
+    _plain_backward_matches_jax(b, l, causal, dtype, d=128)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_backward_at_head_dim_64_bf16_gqa_matches_jax(causal):
+    """The plain versions of the Hopper D = 64 backward kernels, in bf16 at
+    their 64 × 64 tiles: the ViT's L = 196 (a 4-row tail tile), GQA with
+    H=4, KVH=2 (the kernels' index map), against JAX's ``_flash_backward``
+    in interpret mode at the same blocks."""
+    _plain_backward_matches_jax(1, 196, causal, "bfloat16", d=64)
+
+
+def _plain_backward_matches_jax(b, l, causal, dtype, d):
+    h, kvh = 4, 2
     rng = np.random.RandomState(l + b)
     q = rng.randn(b * h, l, d).astype(np.float32)
     k = rng.randn(b * kvh, l, d).astype(np.float32)
@@ -210,44 +227,71 @@ def test_plain_backward_at_kernel_tiles_matches_jax(b, l, causal, dtype):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("heads", [(12, 12, False), (4, 2, True)],
+                         ids=["vit_b16", "gqa_causal"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
-def test_head_dim_64_routes_to_the_mma_kernels(monkeypatch, dtype):
-    """At D = 64 (the ViT's head width) every dtype takes the mma.sync
-    entries, forward and backward; each wrapper counts its launch."""
+def test_head_dim_64_routes_to_the_mma_kernels(monkeypatch, dtype, heads):
+    """At D = 64 (the ViT's head width) the forward takes the mma.sync
+    entry in every dtype; the backward pair takes the Hopper D = 64 entries
+    of ``flash_bwd_d64`` for bf16/fp16 and the mma.sync entries for f32,
+    with the ViT-B/16 heads and with GQA 4/2.  Each call passes the pointer
+    count of its entry's signature row, each wrapper counts its launch, and
+    the backward returns its outputs' contract (dQ like q; dK/dV per query
+    head)."""
+    h, kvh, causal = heads
     calls = []
     monkeypatch.setattr(tflash, "_check_cuda_inputs", lambda *a: None)
     monkeypatch.setattr(tflash, "_check_bwd_inputs", lambda *a: None)
     monkeypatch.setattr(
         tflash, "_launch",
-        lambda name, fn, tensors, q, h, kvh, causal: calls.append(fn))
+        lambda name, fn, tensors, q, h_, kvh_, causal_: calls.append(
+            (name, fn, len(tensors), h_, kvh_, causal_)))
     for name in ("launches", "dq_launches", "dkv_launches"):
         monkeypatch.setattr(tflash, name, 0)
-    q = k = v = do = torch.zeros((2 * 12, 196, 64), dtype=dtype)
-    lse = delta = torch.zeros((24, 196), dtype=torch.float32)
-    kw = dict(n_heads=12, n_kv_heads=12, causal=False)
+    q = do = torch.zeros((2 * h, 196, 64), dtype=dtype)
+    k = v = torch.zeros((2 * kvh, 196, 64), dtype=dtype)
+    lse = delta = torch.zeros((2 * h, 196), dtype=torch.float32)
+    kw = dict(n_heads=h, n_kv_heads=kvh, causal=causal)
     tflash._flash_forward_cuda(q, k, v, **kw)
-    tflash._flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
-    tflash._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
-    assert calls == ["hvd_flash_fwd_mma", "hvd_flash_bwd_dq_mma",
-                     "hvd_flash_bwd_dkv_mma"]
+    dq = tflash._flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+    dk_h, dv_h = tflash._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    if dtype == torch.float32:
+        bwd = [("flash_bwd", "hvd_flash_bwd_dq_mma"),
+               ("flash_bwd", "hvd_flash_bwd_dkv_mma")]
+    else:
+        bwd = [("flash_bwd_d64", "hvd_flash_bwd_dq_d64"),
+               ("flash_bwd_d64", "hvd_flash_bwd_dkv_d64")]
+    assert [c[:2] for c in calls] == [("flash_fwd", "hvd_flash_fwd_mma"),
+                                      *bwd]
+    for name, fn, n_ptr, *rest in calls:
+        assert n_ptr == tflash._SIGNATURES[name][fn]
+        assert rest == [h, kvh, causal]
     assert (tflash.launches, tflash.dq_launches, tflash.dkv_launches) == (
         1, 1, 1)
+    for t in (dq, dk_h, dv_h):
+        assert t.shape == q.shape and t.dtype == dtype
 
 
 def test_routing_table_covers_dtype_and_head_dim():
-    """The Hopper entries only for 16-bit types at D = 128; every other
-    supported (dtype, D) pair takes the mma.sync entries."""
+    """The forward's Hopper entry only for 16-bit types at D = 128; the
+    backward's Hopper entries for 16-bit types at D = 128 and D = 64 (each
+    head width its own pair); f32 takes the mma.sync entries."""
+    hopper_bwd = {128: ("hvd_flash_bwd_dq", "hvd_flash_bwd_dkv"),
+                  64: ("hvd_flash_bwd_dq_d64", "hvd_flash_bwd_dkv_d64")}
     for dt in (torch.bfloat16, torch.float16, torch.float32):
         for d in (64, 128):
-            hopper = dt != torch.float32 and d == 128
             assert tflash._FWD_ENTRY[dt, d] == (
-                "hvd_flash_fwd" if hopper else "hvd_flash_fwd_mma")
+                "hvd_flash_fwd" if dt != torch.float32 and d == 128
+                else "hvd_flash_fwd_mma")
             assert tflash._BWD_ENTRY[dt, d] == (
-                ("hvd_flash_bwd_dq", "hvd_flash_bwd_dkv") if hopper else
-                ("hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma"))
+                ("hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma")
+                if dt == torch.float32 else hopper_bwd[d])
     assert set(tflash._FWD_ENTRY) == set(tflash._BWD_ENTRY)
     assert {d for _, d in tflash._FWD_ENTRY} == {64, 128}
+    for entries in tflash._BWD_ENTRY.values():
+        for fn in entries:     # each entry is declared in its library
+            assert fn in tflash._SIGNATURES[tflash._LIBRARY[fn]]
 
 
 @pytest.mark.parametrize("d", [16, 96, 256])

@@ -7,7 +7,9 @@ JAX), so it runs on a machine with the card and no JAX::
     python -m pytest --noconftest -m cuda tests/test_torch_flash_kernel.py
 
 Llama-3's head dim 128 (the Hopper kernels for bf16/f16) and the ViT's head
-dim 64 (the ``mma.sync`` kernels in every dtype).
+dim 64 (the forward on the ``mma.sync`` kernel in every dtype; the backward
+pair on the Hopper D = 64 kernels for bf16/f16 and on the ``mma.sync``
+kernels for f32).
 """
 
 from __future__ import annotations
@@ -156,8 +158,10 @@ def test_flash_bwd_f32_takes_the_mma_kernels_on_card(monkeypatch, causal):
         "hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma"}
 
 
-# Head dim 64, the ViT's: every dtype takes the mma.sync kernels (64 × 64
-# tiles), so the plain versions are blocked 64 × 64 for the forward.
+# Head dim 64, the ViT's: the forward takes the mma.sync kernel (64 × 64
+# tiles) in every dtype, so its plain version is blocked 64 × 64; the
+# backward pair takes the Hopper D = 64 kernels for bf16/f16 and the
+# mma.sync kernels for f32.
 
 
 @pytest.mark.cuda
@@ -190,16 +194,20 @@ def test_flash_kernel_d64_matches_reference_on_card(l, causal, dtype):
 @pytest.mark.parametrize("l", [1, 63, 65, 196, 1000])
 def test_flash_bwd_kernels_d64_match_reference_on_card(monkeypatch, l, causal,
                                                        dtype):
-    """The dQ and dK/dV kernels at D = 64 (the mma.sync kernels in every
-    dtype) against their plain versions, B = 2, ViT-B/16 heads."""
+    """The dQ and dK/dV kernels at D = 64 (the Hopper D = 64 kernels for
+    bf16/f16, the mma.sync kernels for f32) against their plain versions,
+    B = 2, ViT-B/16 heads and GQA 4/2."""
     _need_card()
     launched = []
     launch = tflash._launch
     monkeypatch.setattr(tflash, "_launch", lambda name, fn, *a: (
         launched.append(fn), launch(name, fn, *a))[1])
     _check_backward(2, l, causal, dtype, seed=l + 3, heads=VIT_HEADS)
-    assert set(f for f in launched if "bwd" in f) == {
-        "hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma"}
+    _check_backward(2, l, causal, dtype, seed=l + 4, heads=(4, 2, 64))
+    want = ({"hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma"}
+            if dtype == torch.float32 else
+            {"hvd_flash_bwd_dq_d64", "hvd_flash_bwd_dkv_d64"})
+    assert set(f for f in launched if "bwd" in f) == want
 
 
 @pytest.mark.cuda
@@ -231,10 +239,12 @@ def test_flash_kernels_refuse_other_head_dims_on_card(d):
     (2, 1000, True, torch.float16, (H, KVH, D)),
     (2, 200, True, torch.float32, (H, KVH, D)),
     (64, 196, False, torch.bfloat16, VIT_HEADS),      # ViT-B/16
+    (64, 196, False, torch.float16, VIT_HEADS),
     (2, 333, True, torch.float16, VIT_HEADS),
+    (2, 333, True, torch.bfloat16, (4, 2, 64)),
     (2, 65, False, torch.float32, VIT_HEADS),
 ], ids=["llama_train_bf16", "d128_f16", "d128_f32", "vit_b16_bf16",
-        "d64_f16", "d64_f32"])
+        "vit_b16_f16", "d64_f16", "d64_gqa_bf16", "d64_f32"])
 def test_flash_kernels_repeat_bit_for_bit_on_card(b, l, causal, dtype,
                                                   heads):
     """Each kernel owns its outputs (no atomics), so repeated launches on
