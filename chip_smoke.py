@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``horovod_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-layers N] [--train-layers N] [--seed S]
-                          [--vit-bwd-ab]
+                          [--vit-ab {fwd,bwd}]
 
 Phases, one JSON line each; any failure exits non-zero before the result:
 
@@ -18,8 +18,9 @@ Phases, one JSON line each; any failure exits non-zero before the result:
    at Llama-3-8B attention shapes (generate's prefill and the training
    shape among them).  Timed cases report the kernel's device time (from
    ``torch.profiler``), its CUDA-event loop time and the wrapper's host
-   time per call; ``prev_ms``, the earlier ``mma.sync`` kernel on the same
-   bf16 inputs; the plain version's time; and PyTorch's
+   time per call; ``prev_ms`` and ``prev_host_us_per_call``, the earlier
+   ``mma.sync`` kernel on the same bf16 inputs through the same wrapper; the
+   plain version's time; and PyTorch's
    ``scaled_dot_product_attention`` (only a yardstick: the port never
    makes it).
 4. ``kernel flash_bwd``: the dQ and dK/dV kernels (the Hopper kernels for
@@ -51,12 +52,11 @@ Phases, one JSON line each; any failure exits non-zero before the result:
    with the plain one.
 
 8. ``kernel d64`` (run right after ``kernel flash_bwd``): the three
-   kernels at head dim 64, the ViT's (the forward on the ``mma.sync``
-   kernel; dQ and dK/dV on the Hopper D = 64 kernels for bf16/f16 and the
-   ``mma.sync`` kernels for f32): the ViT-B/16 shape (B=64, L=196, 12
-   heads, non-causal) in bf16, f16 and f32, a causal case and tails, each
-   held against its plain version; at the ViT shape the times, bounds,
-   ``prev_ms`` and SDPA.
+   kernels at head dim 64, the ViT's (the Hopper D = 64 kernels for
+   bf16/f16, the ``mma.sync`` kernels for f32): the ViT-B/16 shape (B=64,
+   L=196, 12 heads, non-causal) in bf16, f16 and f32, a causal case and
+   tails, each held against its plain version; at the ViT shape the times,
+   bounds, ``prev_ms`` and SDPA.
 9. ``train resnet101`` (``bench.py _bench_resnet``): ResNet-101 at full
    depth, batch 64 at 224 × 224 from ``synthetic_imagenet``, bf16 compute
    with f32 parameters and BN, ``SGD(0.01, momentum=0.9)`` through
@@ -69,11 +69,12 @@ Phases, one JSON line each; any failure exits non-zero before the result:
     ViT-B/16, bf16, ``attn_impl="flash"``, batch 64 at 224,
     ``AdamW(1e-3, weight_decay=1e-4)``, the same wrapper; each step must
     launch the forward, dQ and dK/dV kernels 12 times and the profiled
-    step must show the Hopper D = 64 backward kernels; step 0's logits and
+    step must show exactly the Hopper D = 64 kernels; step 0's logits and
     gradients are held against dense attention and the blockwise backward.
-    With ``--vit-bwd-ab``, an A/B in the same process: the timed steps
-    again with the backward on the ``mma.sync`` kernels and on the Hopper
-    kernels, in turns (images/s and the profiled idle share of each).
+    With ``--vit-ab fwd`` (``--vit-ab bwd``), an A/B in the same process:
+    the timed steps again with the forward (the backward) on the
+    ``mma.sync`` kernels and on the Hopper kernels, in turns (images/s, the
+    profiled idle share and the route's kernels' ms of each).
 11. ``train vgg16`` (BASELINE config 4, with its fusion buckets and
     allreduce bytes per step) and ``train inception_v3`` (299 × 299): batch
     64, one warm-up and two timed steps each.
@@ -113,7 +114,8 @@ PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
 
 # Tolerances of the kernel against its plain version, compared at the
-# kernel's own tiles (128 × 128 for the Hopper kernel, 64 × 64 for f32), so
+# kernel's own tiles (128 × 128 for the D = 128 Hopper kernel, 64 × 64 for
+# the D = 64 one and for f32), so
 # both round P to the storage dtype at the same running max.  P still
 # differs by a few f32 units in the last place (the kernel takes exp2 with
 # log2(e)·scale folded in, the reference exp of the scaled score, and the
@@ -382,9 +384,9 @@ def _time_forward(q, k, v, b, l, causal, blk, tname,
                   heads=ATTN_HEADS) -> dict:
     """Times of one forward case: the kernel through its wrapper (device
     time, CUDA-event loop time, host time per call), the earlier mma.sync
-    kernel on the same inputs (``prev``, where the wrapper takes another
-    kernel), the plain version and SDPA."""
-    import torch
+    kernel on the same inputs through the same wrapper (``prev``, where the
+    wrapper takes another kernel: the route switched with ``_mma_route``,
+    the host times in turns), the plain version and SDPA."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.parallel import flash_attention as fa
@@ -394,13 +396,6 @@ def _time_forward(q, k, v, b, l, causal, blk, tname,
 
     def kernel():
         fa._flash_forward_cuda(q, k, v, **kw)
-
-    o_prev = torch.empty_like(q)
-    lse_prev = torch.empty((q.shape[0], l, 1), dtype=torch.float32, device=DEV)
-
-    def prev():
-        fa._launch("flash_fwd", "hvd_flash_fwd_mma", (q, k, v, o_prev, lse_prev),
-                   q, H, KVH, causal)
 
     rows = fa._kv_rows(b * H, H, KVH, DEV)
     q4 = q.view(b, H, l, D)
@@ -413,10 +408,14 @@ def _time_forward(q, k, v, b, l, causal, blk, tname,
     out = {}
     out["ms"], out["kernel_names"] = device_ms(kernel)
     out["wall_ms"] = time_ms(kernel)
-    out["host_us_per_call"] = host_us(kernel)
-    if fa._FWD_ENTRY[q.dtype, D] != "hvd_flash_fwd_mma":
-        out["prev_ms"], out["prev_names"] = device_ms(prev)
-        out["prev_wall_ms"] = time_ms(prev)
+    if fa._FWD_ENTRY[q.dtype, D] != fa._MMA_FWD:
+        with _mma_route(fa._FWD_ENTRY, q.dtype, D):
+            out["prev_ms"], out["prev_names"] = device_ms(kernel)
+            out["prev_wall_ms"] = time_ms(kernel)
+        out["host_us_per_call"], out["prev_host_us_per_call"] = _host_us_ab(
+            kernel, fa._FWD_ENTRY, q.dtype, D)
+    else:
+        out["host_us_per_call"] = host_us(kernel)
     out["library_ms"], out["library_names"] = device_ms(sdpa)
     out["library_wall_ms"] = time_ms(sdpa)
     out["plain_ms"] = time_ms(lambda: fa._flash_forward_reference(
@@ -541,7 +540,7 @@ def _time_backward(q, k, v, do, lse, delta, b, l, causal, tname,
     is timed: through its wrapper (device time, CUDA-event loop time, host
     time per call), the earlier mma.sync kernel on the same inputs through
     the same wrapper (``prev``: device time and host time per call, the
-    route switched with ``_mma_backward``; the host times in turns), the
+    route switched with ``_mma_route``; the host times in turns), the
     plain version, the bound;
     and, for the pair, SDPA's backward in device time (``library_ms``).
     ``prev`` only where the wrappers take the Hopper kernels."""
@@ -568,11 +567,11 @@ def _time_backward(q, k, v, do, lse, delta, b, l, causal, tname,
         r["ms"], r["kernel_names"] = device_ms(fn)
         r["wall_ms"] = time_ms(fn)
         if hopper:
-            with _mma_backward(q.dtype, D):
+            with _mma_route(fa._BWD_ENTRY, q.dtype, D):
                 r["prev_ms"], r["prev_names"] = device_ms(fn)
             r["speedup_vs_prev"] = r["prev_ms"] / r["ms"]
             r["host_us_per_call"], r["prev_host_us_per_call"] = _host_us_ab(
-                fn, q.dtype, D)
+                fn, fa._BWD_ENTRY, q.dtype, D)
         else:
             r["host_us_per_call"] = host_us(fn)
         r["plain_ms"] = time_ms(plain, reps=3, inner=1, warmup=1)
@@ -588,30 +587,31 @@ def _time_backward(q, k, v, do, lse, delta, b, l, causal, tname,
 
 
 @contextlib.contextmanager
-def _mma_backward(dtype, head_dim: int):
-    """Routes the backward wrappers at (dtype, head dim) to the mma.sync
-    kernels while the block runs: the yardstick of ``prev_ms`` and of the
-    ViT-B/16 step's A/B."""
+def _mma_route(table: dict, dtype, head_dim: int):
+    """Routes the wrappers of ``table`` (``_FWD_ENTRY`` or ``_BWD_ENTRY``)
+    at (dtype, head dim) to the mma.sync kernels while the block runs: the
+    yardstick of ``prev_ms`` and of the ViT-B/16 step's A/B."""
     from horovod_tpu_torch.parallel import flash_attention as fa
 
     key = (dtype, head_dim)
-    entries = fa._BWD_ENTRY[key]
-    fa._BWD_ENTRY[key] = fa._MMA_BWD
+    entries = table[key]
+    table[key] = fa._MMA_FWD if table is fa._FWD_ENTRY else fa._MMA_BWD
     try:
         yield
     finally:
-        fa._BWD_ENTRY[key] = entries
+        table[key] = entries
 
 
-def _host_us_ab(fn, dtype, head_dim: int, rounds: int = 25, n: int = 10):
-    """Host time per call of a backward wrapper on its route and on the
+def _host_us_ab(fn, table: dict, dtype, head_dim: int, rounds: int = 25,
+                n: int = 10):
+    """Host time per call of a wrapper of ``table`` on its route and on the
     mma.sync route, in short turns (``n`` calls of each, the first route
     alternating), since the host's clock drifts by more than the routes
     differ: the median of ``rounds`` turns of each."""
     times = {False: [], True: []}            # by "on the mma.sync route"
     for i in range(rounds):
         for mma in (bool(i % 2), not i % 2):
-            with (_mma_backward(dtype, head_dim) if mma
+            with (_mma_route(table, dtype, head_dim) if mma
                   else contextlib.nullcontext()):
                 times[mma].append(host_us(fn, n))
     return statistics.median(times[False]), statistics.median(times[True])
@@ -653,14 +653,14 @@ VIT_SHAPE = ("vit_b16_b64_l196", 64, 196, False)
 
 
 def phase_kernel_d64(seed: int) -> dict:
-    """The three kernels at head dim 64 (64 × 64 tiles): the forward (the
-    mma.sync kernel in every dtype), dQ and dK/dV (the Hopper D = 64
-    kernels for bf16/f16, the mma.sync kernels for f32) against their
-    plain versions (the forward blocked 64 × 64 as the kernel tiles) with
-    the D = 128 phases' tolerances, at the ViT-B/16 shape in bf16, f16 and
-    f32, one causal case and tails L ∈ {1, 63, 65, 1000}; at the ViT shape
-    in bf16 the kernels' times, bounds, ``prev_ms`` for the backward pair
-    and SDPA's forward and backward."""
+    """The three kernels at head dim 64 (64 × 64 tiles; the Hopper D = 64
+    kernels for bf16/f16, the mma.sync kernels for f32) against their plain
+    versions (the forward blocked 64 × 64 as the kernels tile) with the
+    D = 128 phases' tolerances, at the ViT-B/16 shape in bf16, f16 and f32,
+    one causal case and tails L ∈ {1, 63, 65, 1000}; at the ViT shape in
+    bf16 the kernels' times, bounds, ``prev_ms`` and
+    ``prev_host_us_per_call`` (the mma.sync kernels through the same
+    wrappers) and SDPA's forward and backward."""
     import torch
 
     from horovod_tpu_torch.parallel import flash_attention as fa
@@ -895,7 +895,8 @@ def _train_flops(cfg, tokens: int) -> float:
 
 # Kernel names → the layer they belong to, for the train step's breakdown.
 _KERNEL_KINDS = (
-    ("flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel")),
+    ("flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_d64_kernel",
+                   "flash_fwd_mma_kernel")),
     ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
     ("conv (cuDNN)", ("fprop", "dgrad", "wgrad", "implicit_convolve",
                       "winograd", "cudnn")),
@@ -918,6 +919,8 @@ BWD_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
 _ENTRY_KERNELS = {
     "hvd_flash_fwd_mma": ("flash_fwd_mma_kernel", "I13__nv_bfloat16Li64E",
                           "cuda mma.sync"),
+    "hvd_flash_fwd_d64": ("flash_fwd_d64_kernel", "I13__nv_bfloat16",
+                          "cuda wgmma+tma"),
     "hvd_flash_bwd_dq_mma": ("flash_bwd_dq_mma_kernel",
                              "I13__nv_bfloat16Li64E", "cuda mma.sync"),
     "hvd_flash_bwd_dkv_mma": ("flash_bwd_dkv_mma_kernel",
@@ -1285,16 +1288,21 @@ def _grad_distance(g, ref) -> dict:
             "worst_leaf": max(leaves, key=leaves.get)}
 
 
-def _vit_bwd_route_ab(step, model, batch, run) -> dict:
-    """The ViT-B/16 step's A/B of the backward's route: the same steps with
-    the backward on the mma.sync kernels and on the routed ones, in turns
-    (mma, routed, mma, routed after the routed ``run``), each run's
-    images/s and profiled idle share, and the medians by route."""
+def _vit_route_ab(step, model, batch, run, table: dict) -> dict:
+    """The ViT-B/16 step's A/B of one route, the forward's (``table`` is
+    ``_FWD_ENTRY``) or the backward pair's (``_BWD_ENTRY``): the same steps
+    with that route on the mma.sync kernels and on the routed ones, in
+    turns (mma, routed, mma, routed after the routed ``run``), each run's
+    images/s, profiled idle share and the route's kernels' profiled ms, and
+    the medians by route."""
     import torch
 
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    kind = "flash_fwd" if table is fa._FWD_ENTRY else "flash_bwd"
     runs = [("routed", run)]
     for route in ("mma", "routed", "mma", "routed"):
-        ctx = (_mma_backward(torch.bfloat16, 64) if route == "mma"
+        ctx = (_mma_route(table, torch.bfloat16, 64) if route == "mma"
                else contextlib.nullcontext())
         with ctx:
             runs.append((route, _run_steps(step, model, batch, 2, 8, True)))
@@ -1306,8 +1314,8 @@ def _vit_bwd_route_ab(step, model, batch, run) -> dict:
             "step_s": r["step_s"],
             "device_idle_share": prof["device_idle_share"],
             "device_busy_ms": prof["device_busy_ms"],
-            "flash_bwd_ms": {k: v for k, v in prof["ms_by_kind"].items()
-                             if k.startswith("flash_bwd")}})
+            f"{kind}_ms": {k: v for k, v in prof["ms_by_kind"].items()
+                           if k.startswith(kind)}})
     for key in ("images_per_s", "device_idle_share"):
         for route in ("routed", "mma"):
             got = [x[key] for x in ab["runs"]
@@ -1316,15 +1324,16 @@ def _vit_bwd_route_ab(step, model, batch, run) -> dict:
     return ab
 
 
-def phase_vit_b16(seed: int, ab: bool = False) -> dict:
+def phase_vit_b16(seed: int, ab: tuple = ()) -> dict:
     """``bench.py _bench_vit`` with the flash kernels: ViT-B/16, bf16,
     ``attn_impl="flash"`` (head dim 64, L = 196, non-causal), batch 64 at
     224, ``AdamW(1e-3, weight_decay=1e-4)``.  Each step must launch the
     forward, dQ and dK/dV kernels once per block, and the profiled step
-    must show the backward kernels the bf16 route names; step 0's logits
-    and gradients are held against dense attention and the blockwise
-    backward on the same weights.  ``ab`` adds the A/B of the backward's
-    route (``_vit_bwd_route_ab``)."""
+    must show exactly the forward and backward kernels the bf16 routes
+    name; step 0's logits and gradients are held against dense attention
+    and the blockwise backward on the same weights.  ``ab`` names the
+    routes (``"fwd"``, ``"bwd"``) to A/B after the timed steps
+    (``_vit_route_ab``)."""
     import torch
 
     from horovod_tpu_torch import basics
@@ -1371,18 +1380,27 @@ def phase_vit_b16(seed: int, ab: bool = False) -> dict:
     from horovod_tpu_torch.parallel import flash_attention as fa
 
     def routed_and_ab(step, run):
-        """The profiled step went through the kernels ``_BWD_ENTRY`` names
-        for bf16 at D = 64; with ``ab``, the A/B of the backward's route."""
-        want_bwd = [_ENTRY_KERNELS[e][0]
-                    for e in fa._BWD_ENTRY[torch.bfloat16, 64]]
+        """The profiled step went through exactly the kernels
+        ``_FWD_ENTRY`` and ``_BWD_ENTRY`` name for bf16 at D = 64, and the
+        A/B of each route ``ab`` names."""
         names = run["profiled_step"]["flash_kernel_names"]
-        bwd_names = [n for n in names if "flash_bwd" in n]
-        routed = (all(any(k in n for n in bwd_names) for k in want_bwd)
-                  and all(any(k in n for k in want_bwd) for n in bwd_names))
-        late = {"checks": {"bwd_kernels_routed": routed},
-                "bwd_route": list(fa._BWD_ENTRY[torch.bfloat16, 64])}
-        if ab:
-            late["ab_bwd_route"] = _vit_bwd_route_ab(step, model, batch, run)
+
+        def routed(kind, entries):
+            want = [_ENTRY_KERNELS[e][0] for e in entries]
+            got = [n for n in names if kind in n]
+            return (all(any(k in n for n in got) for k in want)
+                    and all(any(k in n for k in want) for n in got))
+
+        fwd_entry = fa._FWD_ENTRY[torch.bfloat16, 64]
+        bwd_entries = fa._BWD_ENTRY[torch.bfloat16, 64]
+        late = {"checks": {
+                    "fwd_kernels_routed": routed("flash_fwd", (fwd_entry,)),
+                    "bwd_kernels_routed": routed("flash_bwd", bwd_entries)},
+                "fwd_route": fwd_entry, "bwd_route": list(bwd_entries)}
+        tables = {"fwd": fa._FWD_ENTRY, "bwd": fa._BWD_ENTRY}
+        for route in ab:
+            late[f"ab_{route}_route"] = _vit_route_ab(step, model, batch, run,
+                                                      tables[route])
         return late
 
     out = _vision_train("train vit_b16", model, opt, batch, warmup=2,
@@ -1497,10 +1515,12 @@ def main(argv=None) -> int:
                     help="depth of the train phase (full width; 8 fits "
                          "f32 weights, gradients and AdamW moments in 80 GB)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--vit-bwd-ab", action="store_true",
-                    help="after the ViT-B/16 phase, time its step with the "
-                         "backward on the mma.sync kernels and on the routed "
-                         "ones, in turns")
+    ap.add_argument("--vit-ab", action="append", default=[],
+                    choices=("fwd", "bwd"),
+                    help="after the ViT-B/16 phase, time its step with this "
+                         "route (the forward or the backward pair) on the "
+                         "mma.sync kernels and on the routed ones, in turns; "
+                         "may be given twice")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1544,7 +1564,7 @@ def main(argv=None) -> int:
         phase = "train resnet101"
         phase_resnet101(args.seed)
         phase = "train vit_b16"
-        vit = phase_vit_b16(args.seed, args.vit_bwd_ab)
+        vit = phase_vit_b16(args.seed, tuple(args.vit_ab))
         phase = "train vgg16"
         phase_vgg16(args.seed)
         phase = "train inception_v3"
@@ -1609,8 +1629,11 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, train, kern64,
                            if c["dtype"] == "bf16"),
         "ms": fwd["ms"], "wall_ms": fwd["wall_ms"],
         "host_us_per_call": fwd["host_us_per_call"],
-        "prev_ms": fwd["prev_ms"], "plain_ms": fwd["plain_ms"],
+        "prev_ms": fwd["prev_ms"],
+        "prev_host_us_per_call": fwd["prev_host_us_per_call"],
+        "speedup_vs_prev": fwd["speedup_vs_prev"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+        "share_of_bound": fwd["share_of_bound"],
         "library_ms": fwd["library_ms"],
         **_ptx(build, "flash_fwd_wgmma_kernel"),
         "smem_bytes": fa.smem_bytes("flash_fwd", "hvd_flash_fwd"),

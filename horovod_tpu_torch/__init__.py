@@ -11,7 +11,9 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request they raise (no silent fallback).
 The TPU's three Pallas kernels, the flash-attention forward and its dQ and
 dK/dV backward, are hand-written CUDA kernels (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``) built with ``nvcc`` at first use into
+``csrc/flash_bwd.cu``; at head dim 64 in bf16/fp16
+``csrc/flash_fwd_d64.cu``, ``csrc/flash_bwd_d64.cu``) built with ``nvcc``
+at first use into
 ``build/horovod_tpu_torch/``.  Training is data-parallel, one process per
 GPU, Horovod style: ``basics.init`` → ``broadcast_parameters`` →
 ``DistributedOptimizer`` → ``make_train_step``.

@@ -48,26 +48,14 @@
 //   registers and K read MN-major; P is formed while dP is in flight.  LSE
 //   and Δ of a thread's rows stay in registers.
 
-#include "flash_common.cuh"
+#include "flash_d64.cuh"
 
 namespace {
 
 using namespace hvd_flash;
+using namespace hvd_flash::d64;
 
-constexpr int TB = 64;                        // rows of a tile: queries or keys
-constexpr int HD = 64;                        // head width
-constexpr uint32_t TILE = TB * HD * 2;        // a [64, 64] 16-bit tile: 8 KB
 constexpr int QW = 32;                        // queries of a dK/dV product
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ int kv_row(int bh, int H, int KVH) {
-  return (bh / H) * KVH + (bh % H) / (H / KVH);
-}
-
-bool bad_shape(int B, int H, int KVH, int L) {
-  return B < 1 || L < 1 || KVH < 1 || H % KVH != 0;
-}
-
 constexpr int THREADS = 128;                  // one warpgroup
 constexpr int MINB = 4;                       // blocks an SM
 constexpr int STAGES = 2;                     // the streamed operands' ring
@@ -84,48 +72,6 @@ constexpr uint32_t ROWS_OFF = RING_OFF + 2 * STAGES * TILE;
 constexpr uint32_t BAR_OFF = ROWS_OFF + 2 * 2 * TB * 4;
 constexpr size_t SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
 static_assert(MINB * (SMEM + 1024) <= 233472, "blocks must fit one SM");
-
-// K-major descriptor of step kk (16 of the 64 columns) over a tile.
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
-  return gmma_desc(tile + kk * 32, 16, 1024);
-}
-
-// MN-major descriptor of step kk (16 rows) over a tile: the B operand
-// [rows][64] of a product that sums over the tile's rows.
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  return gmma_desc(tile + kk * 16 * 128, TILE, 1024);
-}
-
-// A [64, 64] f32 accumulator rounded to T into a tile, swizzled as TMA
-// reads it: warp w's lane holds rows 16w + g and 16w + g + 8, columns
-// 8j + 2t + {0, 1}.
-template <typename T>
-__device__ __forceinline__ void stage_acc(unsigned char* tile,
-                                          const float (&acc)[32], int w,
-                                          int lane) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = 16 * w + g + 8 * r;
-      const uint32_t off = row * 128 + ((j ^ (row & 7)) * 16) + t * 4;
-      *reinterpret_cast<uint32_t*>(tile + off) =
-          pack_f2<T>(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-    }
-  }
-}
-
-// The A fragment of step kk (16 columns of the accumulator it was packed
-// from): pf[m] holds columns 2m, 2m+1.
-template <int N>
-__device__ __forceinline__ void frag(uint32_t (&a)[4], const uint32_t (&pf)[N],
-                                     int kk) {
-  a[0] = pf[4 * kk];
-  a[1] = pf[4 * kk + 1];
-  a[2] = pf[4 * kk + 2];
-  a[3] = pf[4 * kk + 3];
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS, MINB)
@@ -439,16 +385,6 @@ flash_bwd_dq_d64_kernel(const __grid_constant__ CUtensorMap map_q,
     tma_store_3d(&map_dq, qa, 0, q0, bh);
     tma_store_wait();
   }
-}
-
-// Asks for the largest shared-memory carveout once per kernel, so four
-// blocks fit one SM together.
-template <auto kernel>
-int prefer_max_smem() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      (int)cudaSharedmemCarveoutMaxShared);
-  return (int)err;
 }
 
 template <typename T>

@@ -1,5 +1,6 @@
 // Tile helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu, flash_bwd_d64.cu).
+// flash_bwd.cu, and through flash_d64.cuh flash_fwd_d64.cu and
+// flash_bwd_d64.cu).
 //
 // Ampere-style building blocks: storage-dtype conversions, the mma.sync
 // m16n8k16 product with its f32 FMA twin, and the zero-filling tile load.
@@ -10,8 +11,8 @@
 // with 128-byte swizzle, encoded on the host through the driver entry point
 // (no -lcuda); TMA loads and stores; mbarrier init / expect-tx / arrive /
 // wait; the wgmma matrix descriptor; wgmma.mma_async m64n128k16 and
-// m64n64k16 with A from shared memory or from registers, and m64n32k16
-// from shared memory; setmaxnreg.  A 128-byte-swizzled tile is
+// m64n64k16 with A from shared memory or from registers, and m64n32k16 and
+// m64n16k16 from shared memory; setmaxnreg.  A 128-byte-swizzled tile is
 // stored as panels of 64 columns (128 bytes of a 16-bit dtype), each
 // [rows][128 B], 1024-byte aligned, as TMA writes it and wgmma reads it.
 
@@ -295,6 +296,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "%58, %59, %60, %61, %62, %63}"
 #define HVD_ACC32 HVD_ACC8(0), HVD_ACC8(8), HVD_ACC8(16), HVD_ACC8(24)
 #define HVD_ACC16 HVD_ACC8(0), HVD_ACC8(8)
+#define HVD_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define HVD_REGS16                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define HVD_REGS32                                                           \
@@ -311,6 +313,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
                "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "   \
                HVD_REGS16 ", %16, %17, p, 1, 1, 0, 0;\n}\n"                  \
                : HVD_ACC16 : "l"(da), "l"(db), "r"(accumulate))
+#define HVD_WGMMA_SS16(TY)                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " "   \
+               HVD_REGS8 ", %8, %9, p, 1, 1, 0, 0;\n}\n"                     \
+               : HVD_ACC8(0) : "l"(da), "l"(db), "r"(accumulate))
 #define HVD_WGMMA_SS(TY)                                                     \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                  \
                "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
@@ -385,6 +392,19 @@ __device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t da,
   }
 }
 
+// d[64x16] (+)= A[64x16] · B[16x16], both operands in shared memory and
+// K-major: S over the last keys of the head-dim-64 forward's tail tile when
+// at most 16 are left.  The accumulator layout is wgmma_ss's with j = 0, 1.
+template <typename T>
+__device__ __forceinline__ void wgmma_ss16(float (&d)[8], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    HVD_WGMMA_SS16("bf16");
+  } else {
+    HVD_WGMMA_SS16("f16");
+  }
+}
+
 // d[64x64] += A[64x16] · B[16x64], A from registers (wgmma_rs's fragment)
 // and B MN-major in shared memory: the products of the head-dim-64
 // backward (dV += P'ᵀ·dO, dK += dS'ᵀ·Q, dQ += dS'·K).  The accumulator
@@ -402,6 +422,7 @@ __device__ __forceinline__ void wgmma_rs64(float (&d)[32],
 
 #undef HVD_WGMMA_RS64
 #undef HVD_WGMMA_SS32
+#undef HVD_WGMMA_SS16
 #undef HVD_WGMMA_RS
 #undef HVD_WGMMA_SS
 #undef HVD_WGMMA_SS64
@@ -411,6 +432,7 @@ __device__ __forceinline__ void wgmma_rs64(float (&d)[32],
 #undef HVD_ACC32
 #undef HVD_ACC16
 #undef HVD_REGS16
+#undef HVD_REGS8
 #undef HVD_ACC8
 
 // Two f32 values rounded to the 16-bit dtype and packed (lo in the low half).

@@ -49,9 +49,9 @@
 // `hvd_flash_fwd_mma` (bf16, fp16, f32; D = 64 or 128):
 // `flash_fwd_mma_kernel`, the earlier design, kept for f32 (wgmma's only
 // 32-bit path is TF32, which would break the f32 exactness the plain
-// version and the CPU tests rely on), for D = 64 in every dtype (the ViT
-// path: patch 16 at 224 px gives L = 196 and every ViT head is 64 wide)
-// and as the same-run yardstick of chip_smoke.py.  One block per
+// version and the CPU tests rely on) at D = 128 and at D = 64 (the ViT
+// head width; bf16 and fp16 there take flash_fwd_d64.cu), and as the
+// same-run yardstick of chip_smoke.py.  One block per
 // (b·h, 64-row query tile), four warps of 16 rows, 64-key tiles loaded
 // synchronously, mma.sync m16n8k16 (plain FMAs in the same fragment layout
 // for f32), P through shared memory.  At D = 64 a row of a tile is 128 B

@@ -9,8 +9,13 @@ approximation, and the dense attention's rounding points (scores in
 
 ``attn_impl="flash"`` runs :func:`..parallel.flash_attention.flash_attention`
 non-causal: on the card the hand-written forward, dQ and dK/dV kernels at
-head dim 64 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), once per block
-and step.  An unknown ``attn_impl`` raises.  NHWC input as in the JAX
+head dim 64, once per block and step, routed by dtype in
+``flash_attention._FWD_ENTRY`` and ``_BWD_ENTRY``: bf16/fp16 to the Hopper
+kernels ``hvd_flash_fwd_d64`` (``csrc/flash_fwd_d64.cu``) and
+``hvd_flash_bwd_dq_d64``/``hvd_flash_bwd_dkv_d64``
+(``csrc/flash_bwd_d64.cu``), f32 to the ``mma.sync`` kernels
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``).  An unknown ``attn_impl``
+raises.  NHWC input as in the JAX
 package; the logits come back in ``dtype``, as there.
 """
 

@@ -5,10 +5,11 @@ Port of ``horovod_tpu/parallel/flash_attention.py`` (``_flash_forward``,
 ``flash_attention``).  The TPU's three Pallas kernels become CUDA C++ for
 ``sm_90a``, built by :mod:`.._build`:
 
-* ``_flash_kernel`` → ``csrc/flash_fwd.cu`` (:func:`_flash_forward_cuda`):
-  ``hvd_flash_fwd``, the Hopper kernel (TMA, wgmma), for bf16 and fp16 at
-  head dim 128; ``hvd_flash_fwd_mma``, the ``mma.sync``/FMA kernel, for f32
-  and for head dim 64 in every dtype;
+* ``_flash_kernel`` → :func:`_flash_forward_cuda`: the Hopper kernels
+  (TMA, wgmma) for bf16 and fp16, ``hvd_flash_fwd`` (``csrc/flash_fwd.cu``)
+  at head dim 128 and ``hvd_flash_fwd_d64`` (``csrc/flash_fwd_d64.cu``) at
+  64; ``hvd_flash_fwd_mma`` (``csrc/flash_fwd.cu``), the ``mma.sync``/FMA
+  kernel, for f32;
 * ``_flash_dq_kernel`` → :func:`_flash_bwd_dq_cuda`: the Hopper kernels
   for bf16 and fp16, ``hvd_flash_bwd_dq`` (``csrc/flash_bwd.cu``) at head
   dim 128 and ``hvd_flash_bwd_dq_d64`` (``csrc/flash_bwd_d64.cu``) at 64;
@@ -256,22 +257,23 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # D, dtype and causal as ints, then the softmax scale and the stream.
 _SIGNATURES = {
     "flash_fwd": {"hvd_flash_fwd": 5, "hvd_flash_fwd_mma": 5},
+    "flash_fwd_d64": {"hvd_flash_fwd_d64": 5},
     "flash_bwd": {"hvd_flash_bwd_dq": 7, "hvd_flash_bwd_dkv": 8,
                   "hvd_flash_bwd_dq_mma": 7, "hvd_flash_bwd_dkv_mma": 8},
     "flash_bwd_d64": {"hvd_flash_bwd_dq_d64": 7, "hvd_flash_bwd_dkv_d64": 8},
 }
 _LIBRARY = {fn: lib for lib, fns in _SIGNATURES.items() for fn in fns}
 # Entries by (dtype, head dim).  The Hopper kernels (wgmma, whose only
-# 32-bit path is TF32) take the 16-bit types: the forward at D = 128, the
-# backward pair at D = 128 (``flash_bwd``) and D = 64 (``flash_bwd_d64``).
-# f32, and the forward at D = 64, take the mma.sync/FMA kernels.
-_HOPPER_FWD = "hvd_flash_fwd"
+# 32-bit path is TF32) take the 16-bit types, each head width its own:
+# D = 128 in ``flash_fwd`` and ``flash_bwd``, D = 64 in ``flash_fwd_d64``
+# and ``flash_bwd_d64``.  f32 takes the mma.sync/FMA kernels.
+_HOPPER_FWD = {128: "hvd_flash_fwd", 64: "hvd_flash_fwd_d64"}
 _HOPPER_BWD = {128: ("hvd_flash_bwd_dq", "hvd_flash_bwd_dkv"),
                64: ("hvd_flash_bwd_dq_d64", "hvd_flash_bwd_dkv_d64")}
 _MMA_FWD = "hvd_flash_fwd_mma"
 _MMA_BWD = ("hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma")
-_FWD_ENTRY = {(dt, d): _HOPPER_FWD if dt != torch.float32 and d == 128
-              else _MMA_FWD for dt in _DTYPE_CODE for d in _HEAD_DIMS}
+_FWD_ENTRY = {(dt, d): _MMA_FWD if dt == torch.float32 else _HOPPER_FWD[d]
+              for dt in _DTYPE_CODE for d in _HEAD_DIMS}
 _BWD_ENTRY = {  # (dtype, D) -> (dQ entry, dK/dV entry)
     (dt, d): _MMA_BWD if dt == torch.float32 else _HOPPER_BWD[d]
     for dt in _DTYPE_CODE for d in _HEAD_DIMS}
@@ -324,9 +326,11 @@ def _launch(name: str, fn: str, tensors, q, n_heads, n_kv_heads, causal):
 
 def _flash_forward_cuda(q, k, v, *, n_heads: int, n_kv_heads: int,
                         causal: bool):
-    """Launch ``csrc/flash_fwd.cu`` on the current stream: the Hopper
-    kernel for bf16/fp16 at D = 128 (128×128 tiles), the ``mma.sync``/FMA
-    kernel for f32 and for D = 64 (64×64; ``_FWD_ENTRY``).  Same contract
+    """Launch the forward kernel for q's dtype and head dim (``_FWD_ENTRY``)
+    on the current stream: for bf16/fp16 the Hopper kernel of
+    ``csrc/flash_fwd.cu`` at D = 128 (128×128 tiles) or of
+    ``csrc/flash_fwd_d64.cu`` at D = 64 (64×64), for f32 the
+    ``mma.sync``/FMA kernel of ``csrc/flash_fwd.cu`` (64×64).  Same contract
     as :func:`_flash_forward_reference`; the kernel's tiles replace
     ``block_q``/``block_k``."""
     global launches
@@ -334,8 +338,9 @@ def _flash_forward_cuda(q, k, v, *, n_heads: int, n_kv_heads: int,
     bh, l, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, l, 1), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", _FWD_ENTRY[q.dtype, q.shape[2]], (q, k, v, o, lse),
-            q, n_heads, n_kv_heads, causal)
+    entry = _FWD_ENTRY[q.dtype, d]
+    _launch(_LIBRARY[entry], entry, (q, k, v, o, lse), q, n_heads,
+            n_kv_heads, causal)
     launches += 1
     return o, lse
 

@@ -6,12 +6,14 @@ Hopper kernels' tiles, on the CPU.
   number of pointers, and the seven ints and one float ``_kernel_lib``
   declares after them: a mismatch would make ``ctypes`` cut or shift the
   arguments on the card.
-* ``_flash_forward_cuda`` sends bf16/fp16 to ``hvd_flash_fwd`` (the Hopper
-  kernel) and f32 to ``hvd_flash_fwd_mma``; the backward wrappers send
-  bf16/fp16 to ``hvd_flash_bwd_dq``/``hvd_flash_bwd_dkv`` at head dim 128
-  and to ``hvd_flash_bwd_dq_d64``/``hvd_flash_bwd_dkv_d64`` at 64, and f32
-  to their ``_mma`` entries; with ``_launch`` replaced.
-* The plain forward blocked 128 × 128, as the Hopper kernel tiles, against
+* ``_flash_forward_cuda`` sends bf16/fp16 to the Hopper kernels,
+  ``hvd_flash_fwd`` at head dim 128 and ``hvd_flash_fwd_d64`` at 64, and
+  f32 to ``hvd_flash_fwd_mma``; the backward wrappers send bf16/fp16 to
+  ``hvd_flash_bwd_dq``/``hvd_flash_bwd_dkv`` at head dim 128 and to
+  ``hvd_flash_bwd_dq_d64``/``hvd_flash_bwd_dkv_d64`` at 64, and f32 to
+  their ``_mma`` entries; with ``_launch`` replaced.
+* The plain forward blocked 128 × 128, as the D = 128 Hopper kernel tiles,
+  and 64 × 64 at D = 64 in bf16 and fp16, as the D = 64 one does, against
   the JAX ``_flash_forward`` (the Pallas kernel in interpret mode) at the
   same blocks: ragged L, GQA with H=4, KVH=2.  The plain dQ and dK/dV
   blocked 64 × 64, as the Hopper backward kernels tile, against the JAX
@@ -60,6 +62,7 @@ def test_every_launch_entry_has_a_signature_row():
 
 @pytest.mark.parametrize("lib, entry", [
     ("flash_fwd", "hvd_flash_fwd"), ("flash_fwd", "hvd_flash_fwd_mma"),
+    ("flash_fwd_d64", "hvd_flash_fwd_d64"),
     ("flash_bwd", "hvd_flash_bwd_dq"), ("flash_bwd", "hvd_flash_bwd_dkv"),
     ("flash_bwd", "hvd_flash_bwd_dq_mma"),
     ("flash_bwd", "hvd_flash_bwd_dkv_mma"),
@@ -162,6 +165,34 @@ def test_plain_forward_at_kernel_tiles_matches_jax(l, causal, dtype):
                                atol=LSE_ATOL)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_forward_at_head_dim_64_16_bit_gqa_matches_jax(causal, dtype):
+    """The plain version of the Hopper D = 64 forward, in bf16 and fp16 at
+    its 64 × 64 tiles: the ViT's L = 196 (a 4-row tail tile), GQA with H=4,
+    KVH=2 (the kernel's index map), against JAX's ``_flash_forward`` in
+    interpret mode at the same blocks, on the same seeded inputs."""
+    b, h, kvh, l, d = 1, 4, 2, 196, 64
+    rng = np.random.RandomState(l + causal)
+    q = rng.randn(b * h, l, d).astype(np.float32)
+    k = rng.randn(b * kvh, l, d).astype(np.float32)
+    v = rng.randn(b * kvh, l, d).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jo, jlse = jflash._flash_forward(
+        jnp.asarray(q).astype(jdt), jnp.asarray(k).astype(jdt),
+        jnp.asarray(v).astype(jdt), n_heads=h, n_kv_heads=kvh, causal=causal,
+        block_q=64, block_k=64, interpret=True)
+    to, tlse = tflash._flash_forward_reference(
+        torch.from_numpy(q).to(tdt), torch.from_numpy(k).to(tdt),
+        torch.from_numpy(v).to(tdt), n_heads=h, n_kv_heads=kvh,
+        causal=causal, block_q=64, block_k=64)
+    assert to.dtype == tdt and to.shape == (b * h, l, d)
+    np.testing.assert_allclose(to.float().numpy(),
+                               np.asarray(jo, np.float32), atol=BF16_ATOL)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse)[:, :l],
+                               atol=LSE_ATOL)
+
+
 # The plain backward against JAX's, relative to the largest |grad| of each
 # tensor.  f32: the same block loops and the same f32 P and dS; only the
 # products' summation order differs (measured below 4e-7).  bf16: P and dS
@@ -231,14 +262,14 @@ def _plain_backward_matches_jax(b, l, causal, dtype, d):
                          ids=["vit_b16", "gqa_causal"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
-def test_head_dim_64_routes_to_the_mma_kernels(monkeypatch, dtype, heads):
-    """At D = 64 (the ViT's head width) the forward takes the mma.sync
-    entry in every dtype; the backward pair takes the Hopper D = 64 entries
-    of ``flash_bwd_d64`` for bf16/fp16 and the mma.sync entries for f32,
-    with the ViT-B/16 heads and with GQA 4/2.  Each call passes the pointer
-    count of its entry's signature row, each wrapper counts its launch, and
-    the backward returns its outputs' contract (dQ like q; dK/dV per query
-    head)."""
+def test_head_dim_64_routes_by_dtype(monkeypatch, dtype, heads):
+    """At D = 64 (the ViT's head width) bf16/fp16 take the Hopper D = 64
+    entries (the forward's of ``flash_fwd_d64``, the backward pair's of
+    ``flash_bwd_d64``) and f32 the mma.sync entries of ``flash_fwd`` and
+    ``flash_bwd``, with the ViT-B/16 heads and with GQA 4/2.  Each call
+    passes the pointer count of its entry's signature row, each wrapper
+    counts its launch, and the backward returns its outputs' contract (dQ
+    like q; dK/dV per query head)."""
     h, kvh, causal = heads
     calls = []
     monkeypatch.setattr(tflash, "_check_cuda_inputs", lambda *a: None)
@@ -257,13 +288,14 @@ def test_head_dim_64_routes_to_the_mma_kernels(monkeypatch, dtype, heads):
     dq = tflash._flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
     dk_h, dv_h = tflash._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
     if dtype == torch.float32:
-        bwd = [("flash_bwd", "hvd_flash_bwd_dq_mma"),
-               ("flash_bwd", "hvd_flash_bwd_dkv_mma")]
+        want = [("flash_fwd", "hvd_flash_fwd_mma"),
+                ("flash_bwd", "hvd_flash_bwd_dq_mma"),
+                ("flash_bwd", "hvd_flash_bwd_dkv_mma")]
     else:
-        bwd = [("flash_bwd_d64", "hvd_flash_bwd_dq_d64"),
-               ("flash_bwd_d64", "hvd_flash_bwd_dkv_d64")]
-    assert [c[:2] for c in calls] == [("flash_fwd", "hvd_flash_fwd_mma"),
-                                      *bwd]
+        want = [("flash_fwd_d64", "hvd_flash_fwd_d64"),
+                ("flash_bwd_d64", "hvd_flash_bwd_dq_d64"),
+                ("flash_bwd_d64", "hvd_flash_bwd_dkv_d64")]
+    assert [c[:2] for c in calls] == want
     for name, fn, n_ptr, *rest in calls:
         assert n_ptr == tflash._SIGNATURES[name][fn]
         assert rest == [h, kvh, causal]
@@ -274,24 +306,27 @@ def test_head_dim_64_routes_to_the_mma_kernels(monkeypatch, dtype, heads):
 
 
 def test_routing_table_covers_dtype_and_head_dim():
-    """The forward's Hopper entry only for 16-bit types at D = 128; the
-    backward's Hopper entries for 16-bit types at D = 128 and D = 64 (each
-    head width its own pair); f32 takes the mma.sync entries."""
+    """The Hopper entries for 16-bit types at D = 128 and D = 64, each head
+    width its own forward and backward pair; f32 takes the mma.sync
+    entries at both."""
+    hopper_fwd = {128: "hvd_flash_fwd", 64: "hvd_flash_fwd_d64"}
     hopper_bwd = {128: ("hvd_flash_bwd_dq", "hvd_flash_bwd_dkv"),
                   64: ("hvd_flash_bwd_dq_d64", "hvd_flash_bwd_dkv_d64")}
     for dt in (torch.bfloat16, torch.float16, torch.float32):
         for d in (64, 128):
             assert tflash._FWD_ENTRY[dt, d] == (
-                "hvd_flash_fwd" if dt != torch.float32 and d == 128
-                else "hvd_flash_fwd_mma")
+                "hvd_flash_fwd_mma" if dt == torch.float32
+                else hopper_fwd[d])
             assert tflash._BWD_ENTRY[dt, d] == (
                 ("hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma")
                 if dt == torch.float32 else hopper_bwd[d])
     assert set(tflash._FWD_ENTRY) == set(tflash._BWD_ENTRY)
     assert {d for _, d in tflash._FWD_ENTRY} == {64, 128}
-    for entries in tflash._BWD_ENTRY.values():
+    for entries in (*tflash._BWD_ENTRY.values(),
+                    *((fn,) for fn in tflash._FWD_ENTRY.values())):
         for fn in entries:     # each entry is declared in its library
             assert fn in tflash._SIGNATURES[tflash._LIBRARY[fn]]
+    assert tflash._LIBRARY["hvd_flash_fwd_d64"] == "flash_fwd_d64"
 
 
 @pytest.mark.parametrize("d", [16, 96, 256])

@@ -6,10 +6,11 @@ JAX), so it runs on a machine with the card and no JAX::
 
     python -m pytest --noconftest -m cuda tests/test_torch_flash_kernel.py
 
-Llama-3's head dim 128 (the Hopper kernels for bf16/f16) and the ViT's head
-dim 64 (the forward on the ``mma.sync`` kernel in every dtype; the backward
-pair on the Hopper D = 64 kernels for bf16/f16 and on the ``mma.sync``
-kernels for f32).
+Llama-3's head dim 128 and the ViT's head dim 64: at each the Hopper
+kernels for bf16/f16 (``hvd_flash_fwd``, ``hvd_flash_fwd_d64`` and the
+backward pairs) and the ``mma.sync`` kernels for f32; and the ``mma.sync``
+forward at D = 64 in bf16/f16 called directly, the same-run yardstick of
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -158,10 +159,9 @@ def test_flash_bwd_f32_takes_the_mma_kernels_on_card(monkeypatch, causal):
         "hvd_flash_bwd_dq_mma", "hvd_flash_bwd_dkv_mma"}
 
 
-# Head dim 64, the ViT's: the forward takes the mma.sync kernel (64 × 64
-# tiles) in every dtype, so its plain version is blocked 64 × 64; the
-# backward pair takes the Hopper D = 64 kernels for bf16/f16 and the
-# mma.sync kernels for f32.
+# Head dim 64, the ViT's: the three kernels take the Hopper D = 64 kernels
+# for bf16/f16 and the mma.sync kernels for f32, all on 64 × 64 tiles, so
+# the forward's plain version is blocked 64 × 64.
 
 
 @pytest.mark.cuda
@@ -172,7 +172,8 @@ def test_flash_bwd_f32_takes_the_mma_kernels_on_card(monkeypatch, causal):
 def test_flash_kernel_d64_matches_reference_on_card(l, causal, dtype):
     """The forward at D = 64 (ViT-B/16 heads: 12 of 64, no GQA) against its
     plain version at its 64 × 64 tiles, B = 2, tails on both sides of a
-    tile and the ViT's L = 196; and GQA 4/2 at D = 64."""
+    tile and the ViT's L = 196; and GQA 4/2 at D = 64.  bf16/f16 launch
+    the Hopper D = 64 kernel, f32 the mma.sync kernel."""
     _need_card()
     entries = []
     launch = tflash._launch
@@ -184,7 +185,38 @@ def test_flash_kernel_d64_matches_reference_on_card(l, causal, dtype):
         gqa = (4, 2, 64)
         _check_forward(*_qkv(2, l, dtype, seed=l + 1, heads=gqa), causal,
                        block=64, heads=gqa)
-    assert entries == ["hvd_flash_fwd_mma"] * 2
+    want = ("hvd_flash_fwd_mma" if dtype == torch.float32
+            else "hvd_flash_fwd_d64")
+    assert entries == [want] * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("l", [65, 196])
+def test_flash_mma_kernel_d64_matches_reference_on_card(l, causal, dtype):
+    """The mma.sync forward at D = 64 in bf16/f16, which the wrapper no
+    longer routes to but chip_smoke.py times as ``prev_ms``, called through
+    its entry against its plain version at its 64 × 64 tiles: ViT-B/16
+    heads and GQA 4/2, B = 2."""
+    _need_card()
+    for seed, heads in ((l, VIT_HEADS), (l + 1, (4, 2, 64))):
+        h, kvh, _ = heads
+        q, k, v = _qkv(2, l, dtype, seed=seed, heads=heads)
+        o = torch.empty_like(q)
+        lse = torch.empty((q.shape[0], l, 1), dtype=torch.float32,
+                          device="cuda")
+        tflash._launch("flash_fwd", "hvd_flash_fwd_mma", (q, k, v, o, lse), q,
+                       h, kvh, causal)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = tflash._flash_forward_reference(
+            q, k, v, n_heads=h, n_kv_heads=kvh, causal=causal, block_q=64,
+            block_k=64)
+        atol, rtol = O_TOL[dtype]
+        diff = (o.float() - o_ref.float()).abs()
+        assert bool(torch.isfinite(o.float()).all())
+        assert float((diff - rtol * o_ref.float().abs()).max()) <= atol
+        assert float((lse - lse_ref).abs().max()) <= LSE_TOL
 
 
 @pytest.mark.cuda
