@@ -78,9 +78,29 @@ Phases, one JSON line each; any failure exits non-zero before the result:
 11. ``train vgg16`` (BASELINE config 4, with its fusion buckets and
     allreduce bytes per step) and ``train inception_v3`` (299 × 299): batch
     64, one warm-up and two timed steps each.
-12. ``fit mnist`` (BASELINE config 1): ``MnistConvNet`` through ``fit``,
+12. ``train compressed`` (the synthetic benchmark twin's model): ResNet-50
+    at full width, batch 32 at 224, bf16 compute with f32 parameters,
+    ``SGD(0.01, momentum=0.9)``, NCCL with a world of one, through each
+    reduction route in turn from the same weights: ``none``, ``int8`` and
+    ``int4`` (``allreduce``'s dispatch in the fusion buckets),
+    ``powersgd`` and ``ef-topk`` (stateful), ``is_sparse`` (top-k 1 %) and
+    ``adasum``.  A warm-up step, a checked step (the gradients copied to
+    the host before the reduction, the reduction held against the same
+    functions on that copy: codes and ``roundtrip`` bit for bit, top-k
+    selections, PowerSGD's approximation + residual = M and P̂
+    orthonormal, the input itself at a world of one), four timed steps
+    (images/s) and one whose reduction runs under ``torch.profiler``
+    (device ms, launches, wall ms).  Losses finite and falling on every
+    route; the ``powersgd`` route's (model, optimizer) checkpoint restores
+    bit for bit, PowerSGD's state included.
+13. ``fit mnist`` (BASELINE config 1): ``MnistConvNet`` through ``fit``,
     ``ShardedLoader`` over ``synthetic_mnist`` and the broadcast,
-    metric-average and warm-up callbacks, two epochs; the loss must fall.
+    metric-average, warm-up and checkpoint callbacks, two epochs; the loss
+    must fall, a checkpoint lands per epoch under ``$TMPDIR``,
+    ``latest_checkpoint`` finds the last, ``restore_checkpoint`` into fresh
+    objects equals the trained state bit for bit, and ``load_model``
+    returns a ``DistributedOptimizer`` around the optimizer it was given,
+    which holds the trained momentum bit for bit.
 
 The training phases share one process group, shut down after the last.
 Then a ``{"kernels": [...]}`` line (each kernel at head dims 128 and 64)
@@ -1458,15 +1478,331 @@ def phase_inception_v3(seed: int) -> dict:
     return out
 
 
+# -- compressed and alternative reductions ----------------------------------
+
+# The synthetic benchmark twin's defaults (the reference's
+# pytorch_synthetic_benchmark.py): ResNet-50, batch 32 a card at 224.
+COMPRESSED_BATCH = 32
+COMPRESSED_IMAGE = 224
+COMPRESSED_ROUTES = ("none", "int8", "int4", "powersgd", "ef-topk",
+                     "is_sparse", "adasum")
+# PowerSGD: approximation + residual against M, relative; P̂'s live columns
+# against the identity.
+POWERSGD_SUM_RTOL = 1e-5
+POWERSGD_ORTHO_TOL = 1e-4
+# Error feedback around top-k: reduced + residual against the corrected
+# gradient, relative to its largest magnitude (f32 rounding of one add).
+EF_SUM_RTOL = 1e-6
+
+
+def _route_options(route: str) -> dict:
+    """``DistributedOptimizer`` keywords of each route, the synthetic
+    benchmark twin's mapping (``--compression``, ``--adasum``) plus the
+    fork's ``is_sparse``."""
+    from horovod_tpu_torch.examples.synthetic_benchmark import compressor
+    from horovod_tpu_torch.ops.collective_ops import Adasum
+
+    if route == "is_sparse":
+        return {"is_sparse": True, "sparse_ratio": 0.01}
+    if route == "adasum":
+        return {"op": Adasum}
+    return {"compression": compressor(route)}
+
+
+def _host(x):
+    """A CPU copy of a tensor or of a compressor state entry."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    return type(x)(*(_host(t) for t in x))
+
+
+def _topk_agree(card_idx, cpu_idx, mag) -> bool:
+    """The same top-k on the card and on the CPU: the same indices, or,
+    where |x| ties at the k-th magnitude, the same indices above it and as
+    many at it."""
+    a, b = set(card_idx.tolist()), set(cpu_idx.tolist())
+    if a == b:
+        return True
+    kth = mag[cpu_idx].min()
+    return len(a) == len(b) and all(bool(mag[i] == kth) for i in a ^ b)
+
+
+def _check_topk(comp, corrected, reduced, residual) -> dict:
+    """Per leaf: at most k non-zeros, the card's selection equal to the
+    CPU's, the picked entries sent as they are, and (with a residual)
+    reduced + residual = corrected."""
+    import torch
+
+    ok = {"at_most_k": True, "same_indices": True, "picked_values": True,
+          "sum_to_corrected": True}
+    ties = 0
+    for i, c in enumerate(corrected):
+        flat, red = c.reshape(-1), reduced[i].reshape(-1)
+        k = comp._k_for(flat.numel())
+        cpu_idx = comp.select(flat)
+        card_idx = comp.select(flat.to(DEV)).cpu()
+        ok["at_most_k"] &= int((red != 0).sum()) <= k
+        same = _topk_agree(card_idx, cpu_idx, flat.abs())
+        ties += int(same and set(card_idx.tolist()) != set(cpu_idx.tolist()))
+        ok["same_indices"] &= same
+        ok["picked_values"] &= bool(torch.equal(red[card_idx],
+                                                flat[card_idx]))
+        if residual is not None:
+            err = (red + residual[i].reshape(-1) - flat).abs().max()
+            ok["sum_to_corrected"] &= bool(
+                err <= EF_SUM_RTOL * flat.abs().max())
+    return {"checks": ok, "leaves_with_boundary_ties": ties}
+
+
+def _check_quantized(cls, grads, reduced, threshold) -> dict:
+    """Per fusion bucket (the blocks follow its boundaries): the reduced
+    gradient equals ``roundtrip`` of the CPU copy bit for bit, the card's
+    codes and scales equal the CPU's, and every element lies within one
+    step (block max-abs / LEVELS) of the gradient."""
+    import torch
+
+    from horovod_tpu_torch.ops.fusion import plan_buckets
+
+    ok = {"roundtrip_bit_equal": True, "codes_bit_equal": True,
+          "within_one_step": True}
+    plan = plan_buckets(grads, threshold)
+    for bucket in plan:
+        flat = torch.cat([grads[i].reshape(-1) for i in bucket])
+        red = torch.cat([reduced[i].reshape(-1) for i in bucket])
+        ok["roundtrip_bit_equal"] &= bool(torch.equal(red,
+                                                      cls.roundtrip(flat)))
+        codes, scale, n = cls._block_quantize(flat)
+        ccodes, cscale, _ = cls._block_quantize(flat.to(DEV))
+        ok["codes_bit_equal"] &= bool(torch.equal(codes, ccodes.cpu())
+                                      and torch.equal(scale, cscale.cpu()))
+        pad = scale.shape[0] * cls.BLOCK - n
+        err = torch.nn.functional.pad((red - flat).abs(), (0, pad))
+        ok["within_one_step"] &= bool(
+            (err.reshape(scale.shape[0], -1) <= scale).all())
+    return {"checks": ok, "fusion_buckets": len(plan)}
+
+
+def _check_powersgd(grads, reduced, before, after) -> dict:
+    """Per compressed leaf: approximation + residual = M (relative), P̂'s
+    live columns orthonormal (P̂ from the card, and from the CPU on the
+    same M and Q); dense leaves reduced as they are."""
+    import torch
+
+    from horovod_tpu_torch.ops.powersgd import (_orthonormalize,
+                                                _PowerSGDLeafState)
+
+    ok = {"approx_plus_residual": True, "p_hat_orthonormal": True,
+          "dense_leaves_exact": True}
+    worst = {"sum_rel": 0.0, "ortho": 0.0, "p_hat_card_vs_cpu": 0.0}
+    compressed = 0
+    for g, red, st0, st1 in zip(grads, reduced, before, after):
+        if not isinstance(st0, _PowerSGDLeafState):
+            ok["dense_leaves_exact"] &= bool(torch.equal(red, g))
+            continue
+        compressed += 1
+        n, m = st0.residual.shape
+        mat = g.reshape(n, m) + st0.residual
+        rel = float((red.reshape(n, m) + st1.residual - mat).norm()
+                    / mat.norm().clamp(min=1e-30))
+        p_hat = _orthonormalize(mat.to(DEV) @ st0.q.to(DEV)).cpu()
+        live = p_hat.norm(dim=0) > 0.5
+        gram = p_hat[:, live].T @ p_hat[:, live]
+        ortho = float((gram - torch.eye(int(live.sum()))).abs().amax()
+                      ) if live.any() else 0.0
+        cpu_p = _orthonormalize(mat @ st0.q)
+        worst["sum_rel"] = max(worst["sum_rel"], rel)
+        worst["ortho"] = max(worst["ortho"], ortho)
+        worst["p_hat_card_vs_cpu"] = max(worst["p_hat_card_vs_cpu"], float(
+            (p_hat - cpu_p).abs().max()))
+        ok["approx_plus_residual"] &= rel <= POWERSGD_SUM_RTOL
+        ok["p_hat_orthonormal"] &= ortho <= POWERSGD_ORTHO_TOL
+    return {"checks": ok, "compressed_leaves": compressed, "worst": worst}
+
+
+def _checkpoint_round_trip(model, opt, route: str, make_model) -> dict:
+    """``save_checkpoint`` of (model, optimizer) under ``$TMPDIR`` and
+    ``restore_checkpoint`` into fresh ones: parameters, BN statistics,
+    momentum and the compressor's state equal bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from horovod_tpu_torch.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from horovod_tpu_torch.optim.distributed_optimizer import \
+        DistributedOptimizer
+
+    tmp = tempfile.mkdtemp(prefix="hvd_ckpt_")
+    try:
+        path = save_checkpoint(tmp, (model, opt), step=0)
+        model2 = make_model()
+        opt2 = DistributedOptimizer(
+            torch.optim.SGD(model2.parameters(), lr=0.01, momentum=0.9),
+            **_route_options(route))
+        restore_checkpoint(path, (model2, opt2))
+        same = all(torch.equal(a, b) for a, b in zip(
+            model.state_dict().values(), model2.state_dict().values()))
+        mom = all(torch.equal(opt.state[p]["momentum_buffer"],
+                              opt2.state[q]["momentum_buffer"])
+                  for p, q in zip(model.parameters(), model2.parameters()))
+        comp = all(torch.equal(a, b) for s, t in zip(opt.comp_state,
+                                                     opt2.comp_state)
+                   for a, b in zip(*((x,) if isinstance(x, torch.Tensor)
+                                     else tuple(x) for x in (s, t))))
+        return {"checkpoint_params_bit_equal": same,
+                "checkpoint_momentum_bit_equal": mom,
+                "checkpoint_powersgd_state_bit_equal": comp}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _compressed_route(route, model, init, batch, *, timed: int) -> dict:
+    """One route: a warm-up step, a checked step (its gradients copied to
+    the host before the reduction, the reduction held against the same
+    functions on that copy), ``timed`` steps through ``make_train_step``
+    and one step whose reduction runs under ``torch.profiler``."""
+    import torch
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.ops.compression import Int4Compressor, \
+        Int8Compressor, TopKCompressor
+    from horovod_tpu_torch.optim.distributed_optimizer import (
+        DistributedOptimizer, make_train_step)
+
+    model.load_state_dict(init)
+    params = list(model.parameters())
+    opt = DistributedOptimizer(
+        torch.optim.SGD(params, lr=0.01, momentum=0.9),
+        **_route_options(route))
+    step = make_train_step(_cross_entropy, opt)
+    losses = [float(step(model, batch).loss)]                 # warm-up
+
+    loss = _cross_entropy(model, batch)
+    loss.backward()
+    grads = [_host(p.grad).float() for p in params]
+    before = [_host(s) for s in opt.comp_state] if opt.stateful else None
+    opt.synchronize()
+    reduced = [_host(p.grad) for p in params]
+    after = [_host(s) for s in opt.comp_state] if opt.stateful else None
+    opt.step()
+    opt.zero_grad()
+    losses.append(float(loss.detach()))
+    if route in ("int8", "int4"):
+        cls = Int8Compressor if route == "int8" else Int4Compressor
+        check = _check_quantized(cls, grads, reduced,
+                                 basics.config().fusion_threshold_bytes)
+    elif route == "ef-topk":
+        corrected = [g + e for g, e in zip(grads, before)]
+        check = _check_topk(opt.compression.inner, corrected, reduced, after)
+    elif route == "is_sparse":
+        check = _check_topk(TopKCompressor(ratio=opt.sparse_ratio), grads,
+                            reduced, None)
+    elif route == "powersgd":
+        check = _check_powersgd(grads, reduced, before, after)
+    else:   # none, adasum: a world of one reduces to the input itself
+        check = {"checks": {"output_is_input": all(
+            torch.equal(r, g) for r, g in zip(reduced, grads))}}
+    del grads, reduced, before, after
+
+    seconds = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        losses.append(float(step(model, batch).loss))         # synchronises
+        seconds.append(time.perf_counter() - t0)
+
+    loss = _cross_entropy(model, batch)
+    loss.backward()
+    sync()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt.synchronize()
+        sync()
+        wall = time.perf_counter() - t0
+    opt.step()
+    opt.zero_grad()
+    losses.append(float(loss.detach()))
+    prof_out = _device_breakdown(prof, wall)
+    step_s = statistics.median(seconds)
+    out = {"route": route, "losses": losses, "step_seconds": seconds,
+           "step_s": step_s, "images_per_s": COMPRESSED_BATCH / step_s,
+           "reduce_launches": prof_out["kernels"],
+           "reduce_device_ms": sum(prof_out["ms_by_kind"].values()),
+           "reduce_wall_ms": prof_out["wall_ms"],
+           "reduce_device_idle_share": prof_out["device_idle_share"],
+           "reduce_top_kernels": prof_out["top_kernels"][:5],
+           **{k: v for k, v in check.items() if k != "checks"}}
+    checks = {**check["checks"],
+              "finite": all(map(math.isfinite, losses)),
+              "decreasing": losses[-1] < losses[0]}
+    if route == "powersgd":
+        from horovod_tpu_torch.models.resnet import ResNet50
+
+        checks.update(_checkpoint_round_trip(
+            model, opt, route,
+            lambda: ResNet50(dtype=torch.bfloat16, device=DEV)))
+    out["checks"] = checks
+    return out
+
+
+def phase_train_compressed(seed: int, timed: int = 4) -> dict:
+    """The synthetic benchmark twin's model at full width (ResNet-50, batch
+    32 at 224, bf16 compute with f32 parameters, ``SGD(0.01,
+    momentum=0.9)``, NCCL with a world of one), through each reduction
+    route in turn, each from the same weights on the same repeated batch."""
+    import torch
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.data import synthetic_imagenet, to_device
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.optim.distributed_optimizer import \
+        broadcast_parameters
+
+    basics.init()
+    torch.backends.cudnn.benchmark = True
+    model = ResNet50(dtype=torch.bfloat16, device=DEV, seed=seed)
+    broadcast_parameters(model)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    images, labels = synthetic_imagenet(COMPRESSED_BATCH, COMPRESSED_IMAGE,
+                                        seed=seed + 9)
+    batch = (to_device(images, DEV), to_device(labels, DEV))
+    params = list(model.parameters())
+    routes = [_compressed_route(r, model, init, batch, timed=timed)
+              for r in COMPRESSED_ROUTES]
+    out = {"model": "ResNet-50", "batch": COMPRESSED_BATCH,
+           "image_size": COMPRESSED_IMAGE, "world_size": basics.size(),
+           "params": sum(p.numel() for p in params), "leaves": len(params),
+           "gradient_bytes": sum(p.numel() * 4 for p in params),
+           "routes": routes,
+           "checks": {f"{r['route']}.{k}": v for r in routes
+                      for k, v in r["checks"].items()}}
+    out["ok"] = all(out["checks"].values())
+    emit("train compressed", **out)
+    if not out["ok"]:
+        raise PhaseError("train compressed failed its checks: "
+                         f"{[k for k, v in out['checks'].items() if not v]}")
+    return out
+
+
 def phase_fit_mnist(seed: int) -> dict:
     """BASELINE config 1 through ``fit``: ``MnistConvNet`` on two epochs of
     ``synthetic_mnist`` (4096), ``ShardedLoader`` (32 a rank), SGD(0.01·size,
     momentum 0.9) behind ``DistributedOptimizer``, and the broadcast,
-    metric-average and warm-up callbacks."""
+    metric-average, warm-up and checkpoint callbacks (``step_<epoch>``
+    under ``$TMPDIR``); then ``latest_checkpoint``, ``restore_checkpoint``
+    into fresh objects (bit for bit) and ``load_model`` (its wrapper holds
+    the given optimizer, restored bit for bit)."""
+    import shutil
+    import tempfile
+
     import torch
     import torch.nn.functional as F
 
-    from horovod_tpu_torch import basics, callbacks
+    from horovod_tpu_torch import basics, callbacks, checkpoint
     from horovod_tpu_torch.data import ShardedLoader, synthetic_mnist
     from horovod_tpu_torch.models.mnist import MnistConvNet
     from horovod_tpu_torch.optim.distributed_optimizer import \
@@ -1478,28 +1814,73 @@ def phase_fit_mnist(seed: int) -> dict:
     images, labels = synthetic_mnist(4096, seed=seed)
     loader = ShardedLoader((images, labels), 32, seed=1, device=DEV)
     lr = 0.01 * basics.size()
-    opt = DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=lr,
-                                               momentum=0.9))
+
+    def sgd(m):
+        return torch.optim.SGD(m.parameters(), lr=lr, momentum=0.9)
+
+    opt = DistributedOptimizer(sgd(model))
 
     def loss_fn(model, batch):
         x, y = batch
         return F.cross_entropy(model(x), y)
 
+    ckpt_dir = tempfile.mkdtemp(prefix="hvd_mnist_ckpt_")
     cbs = [callbacks.BroadcastGlobalVariablesCallback(0),
            callbacks.MetricAverageCallback(),
-           callbacks.LearningRateWarmupCallback(lr, warmup_epochs=1)]
-    t0 = time.perf_counter()
-    _, _, history = fit(model, opt, loss_fn, loader, epochs=2,
-                        callbacks=cbs, verbose=False)
-    sync()
-    seconds = time.perf_counter() - t0
+           callbacks.LearningRateWarmupCallback(lr, warmup_epochs=1),
+           callbacks.ModelCheckpointCallback(ckpt_dir, async_save=True)]
+    try:
+        t0 = time.perf_counter()
+        _, _, history = fit(model, opt, loss_fn, loader, epochs=2,
+                            callbacks=cbs, verbose=False)
+        sync()
+        seconds = time.perf_counter() - t0
+        checkpoint.wait_for_checkpoints()
+        latest = checkpoint.latest_checkpoint(ckpt_dir)
+        model2 = MnistConvNet(device=DEV, seed=seed + 1)
+        opt2 = DistributedOptimizer(sgd(model2))
+        checkpoint.restore_checkpoint(latest, (model2, opt2))
+        model3 = MnistConvNet(device=DEV, seed=seed + 2)
+        sgd3 = sgd(model3)
+        _, opt3 = checkpoint.load_model(latest, sgd3, template=(model3, sgd3))
+        ckpt = {
+            "checkpoints": sorted(os.listdir(ckpt_dir)),
+            "latest": os.path.basename(latest or ""),
+            "params_bit_equal": all(torch.equal(a, b) for a, b in zip(
+                model.state_dict().values(), model2.state_dict().values())),
+            "momentum_bit_equal": all(torch.equal(
+                opt.state[p]["momentum_buffer"],
+                opt2.state[q]["momentum_buffer"]) for p, q in zip(
+                    model.parameters(), model2.parameters())),
+            "load_model_wraps": isinstance(opt3, DistributedOptimizer)
+                                and opt3.optimizer is sgd3,
+            "load_model_params_bit_equal": all(torch.equal(a, b) for a, b in
+                                               zip(model.state_dict().values(),
+                                                   model3.state_dict().values())),
+            "load_model_momentum_bit_equal": all(torch.equal(
+                opt.state[p]["momentum_buffer"],
+                opt3.state[q]["momentum_buffer"]) for p, q in zip(
+                    model.parameters(), model3.parameters()))}
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     losses = [h["loss"] for h in history]
     out = {"epochs": 2, "samples": 4096, "batch_per_rank": 32,
            "steps_per_epoch": len(loader), "world_size": basics.size(),
            "history": history, "fit_seconds": seconds,
-           "images_per_s": 2 * 4096 / seconds,
+           "images_per_s": 2 * 4096 / seconds, "checkpoint": ckpt,
            "checks": {"finite": all(map(math.isfinite, losses)),
-                      "decreasing": losses[-1] < losses[0]}}
+                      "decreasing": losses[-1] < losses[0],
+                      "checkpoint_per_epoch": ckpt["checkpoints"] == [
+                          "step_0", "step_1"],
+                      "latest_is_last_epoch": ckpt["latest"] == "step_1",
+                      "restore_params_bit_equal": ckpt["params_bit_equal"],
+                      "restore_momentum_bit_equal":
+                          ckpt["momentum_bit_equal"],
+                      "load_model_wraps": ckpt["load_model_wraps"],
+                      "load_model_params_bit_equal":
+                          ckpt["load_model_params_bit_equal"],
+                      "load_model_momentum_bit_equal":
+                          ckpt["load_model_momentum_bit_equal"]}}
     out["ok"] = all(out["checks"].values())
     emit("fit mnist", **out)
     if not out["ok"]:
@@ -1569,6 +1950,8 @@ def main(argv=None) -> int:
         phase_vgg16(args.seed)
         phase = "train inception_v3"
         phase_inception_v3(args.seed)
+        phase = "train compressed"
+        phase_train_compressed(args.seed)
         phase = "fit mnist"
         phase_fit_mnist(args.seed)
     except Exception as e:  # every failure ends the run without a result

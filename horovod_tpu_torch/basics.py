@@ -44,6 +44,7 @@ class _State:
     local_rank: int = 0
     local_size: int = 1
     config: EngineConfig | None = None
+    generation: int = 0         # bumped by every init(): keys cached groups
 
 
 _state = _State()
@@ -109,6 +110,7 @@ def init(device: str | torch.device | None = None) -> None:
     _state.device = dev
     _state.local_rank, _state.local_size = local_rank, local_size
     _state.config = EngineConfig.from_env()
+    _state.generation += 1
     _state.initialized = True
 
 

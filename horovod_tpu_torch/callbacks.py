@@ -8,14 +8,14 @@ The reference's Keras callback set:
   averaged over the world with one allreduce;
 * ``LearningRateWarmupCallback``: the gradual ``lr → lr·size`` ramp;
 * ``LearningRateScheduleCallback``: an epoch-window multiplier with
-  momentum correction.
+  momentum correction;
+* ``ModelCheckpointCallback``: rank-0 checkpoints every few epochs.
 
 Schedules are plain functions of the step (:func:`warmup_schedule`,
 :func:`multiplier_schedule`), usable with ``torch.optim.lr_scheduler.LambdaLR``.
 A callback's state is :func:`..training.fit`'s ``(params, optimizer)``;
 where a callback is given no ``set_lr`` / ``scale_momentum`` it sets the
 optimizer's learning rate and scales SGD's momentum buffers itself.
-``ModelCheckpointCallback`` comes with the port of ``checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -217,10 +217,27 @@ class LearningRateScheduleCallback(Callback):
 
 
 class ModelCheckpointCallback(Callback):
-    """Rank-0 periodic checkpoints from inside ``fit``: comes with the port
-    of ``checkpoint.py``."""
+    """Rank-0 periodic checkpoints from inside ``fit`` (the reference's
+    ``keras.callbacks.ModelCheckpoint`` slot, examples/
+    keras_imagenet_resnet50.py:155-158; the rank gate lives in
+    ``save_checkpoint``).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ModelCheckpointCallback comes with a later slice of the port: "
-            "checkpoint.py")
+    Writes fit's state ``(params, optimizer)`` to ``<path>/step_<epoch>``
+    every ``every_epochs``; ``async_save`` writes in the background.
+    Resume with ``latest_checkpoint`` and ``restore_checkpoint``."""
+
+    def __init__(self, path: str, *, every_epochs: int = 1,
+                 async_save: bool = False):
+        if every_epochs < 1:
+            raise ValueError(f"every_epochs must be >= 1, got {every_epochs}")
+        self.path = path
+        self.every_epochs = every_epochs
+        self.async_save = async_save
+
+    def on_epoch_end(self, epoch, state, metrics):
+        if (epoch + 1) % self.every_epochs == 0:
+            from horovod_tpu_torch.checkpoint import save_checkpoint
+
+            save_checkpoint(self.path, state, step=epoch,
+                            async_save=self.async_save)
+        return metrics

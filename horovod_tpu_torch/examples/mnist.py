@@ -4,7 +4,8 @@ Twin of ``examples/jax_mnist.py``: ``init`` → scale the LR by the world size
 → wrap the optimizer (``DistributedOptimizer(SGD(lr·size, momentum=0.9))``)
 → broadcast parameters and optimizer state from rank 0 → train ``MnistMLP``
 on this rank's shard of ``synthetic_mnist`` (``ShardedLoader``, reshuffled
-per epoch).  Rank 0 prints each epoch's world-averaged loss.
+per epoch).  Rank 0 prints each epoch's world-averaged loss and, with
+``--ckpt-dir``, writes ``{"params", "opt"}`` to ``<dir>/step_<epoch>``.
 
     python -m horovod_tpu_torch.examples.mnist --smoke --device cpu
 
@@ -12,9 +13,6 @@ On the card (one process per GPU; ``torchrun`` or the JAX package's
 launcher sets rank and world, else a world of one):
 
     python -m horovod_tpu_torch.examples.mnist --epochs 2
-
-``--ckpt-dir`` (rank-0 checkpoints) comes with the port of
-``checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -25,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from horovod_tpu_torch import basics
+from horovod_tpu_torch.checkpoint import save_checkpoint
 from horovod_tpu_torch.data import ShardedLoader, synthetic_mnist
 from horovod_tpu_torch.models.mnist import MnistMLP
 from horovod_tpu_torch.optim.distributed_optimizer import (
@@ -39,16 +38,12 @@ def main(argv=None) -> list[float]:
     p.add_argument("--base-lr", type=float, default=0.01)
     p.add_argument("--samples", type=int, default=4096)
     p.add_argument("--ckpt-dir", default=None,
-                   help="rank-0 checkpoints (a later slice of the port: "
-                        "checkpoint.py)")
+                   help="write a rank-0 checkpoint here after each epoch")
     p.add_argument("--smoke", action="store_true",
                    help="2 epochs of 256 samples")
     p.add_argument("--device", default=None,
                    help="'cpu' for the gloo CPU world; default the card")
     args = p.parse_args(argv)
-    if args.ckpt_dir is not None:
-        raise NotImplementedError("--ckpt-dir comes with a later slice of the "
-                                  "port: checkpoint.py")
     if args.smoke:
         args.epochs, args.samples = 2, 256
 
@@ -78,6 +73,9 @@ def main(argv=None) -> list[float]:
         means.append(float(torch.stack(losses).mean()))
         if basics.rank() == 0:
             print(f"epoch {epoch}: loss {means[-1]:.4f}")
+        if args.ckpt_dir is not None:
+            save_checkpoint(args.ckpt_dir, {"params": model, "opt": opt},
+                            step=epoch)
     basics.shutdown()
     return means
 

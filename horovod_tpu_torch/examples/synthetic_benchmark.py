@@ -11,8 +11,10 @@ autotuning on), f32 on the CPU.
     python -m horovod_tpu_torch.examples.synthetic_benchmark --smoke --device cpu
     python -m horovod_tpu_torch.examples.synthetic_benchmark        # the card
 
-``--compression`` takes none, fp16 or bf16; int8, powersgd, ef-topk and
-``--adasum`` come with later slices of the port.
+``--compression`` takes the JAX twin's choices: none, fp16, bf16, int8,
+powersgd (``PowerSGDCompressor(rank=4)``) and ef-topk
+(``ErrorFeedback(TopKCompressor(ratio=0.01))``); ``--adasum`` combines the
+gradients with Adasum (with none, fp16 or bf16 only).
 """
 
 from __future__ import annotations
@@ -27,11 +29,22 @@ import torch.nn.functional as F
 from horovod_tpu_torch import basics
 from horovod_tpu_torch.data import synthetic_imagenet, to_device
 from horovod_tpu_torch.models.resnet import ResNet50
-from horovod_tpu_torch.ops.compression import Compression
+from horovod_tpu_torch.ops.collective_ops import Adasum, Average
+from horovod_tpu_torch.ops.compression import Compression, TopKCompressor
+from horovod_tpu_torch.ops.powersgd import ErrorFeedback, PowerSGDCompressor
 from horovod_tpu_torch.optim.distributed_optimizer import (
     DistributedOptimizer, broadcast_parameters, make_train_step)
 
-_LATER = ("int8", "powersgd", "ef-topk")
+_LOSSY = ("int8", "powersgd", "ef-topk")
+
+
+def compressor(name: str):
+    """The JAX twin's mapping of ``--compression``."""
+    if name == "powersgd":
+        return PowerSGDCompressor(rank=4)
+    if name == "ef-topk":
+        return ErrorFeedback(TopKCompressor(ratio=0.01))
+    return getattr(Compression, name)
 
 
 def main(argv=None) -> list[float]:
@@ -42,18 +55,16 @@ def main(argv=None) -> list[float]:
     p.add_argument("--num-batches-per-iter", type=int, default=10)
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--compression", default="none",
-                   choices=["none", "fp16", "bf16", *_LATER],
+                   choices=["none", "fp16", "bf16", *_LOSSY],
                    help="gradient compression on the wire")
     p.add_argument("--adasum", action="store_true",
-                   help="combine gradients with Adasum (a later slice)")
+                   help="combine gradients with op=Adasum instead of Average")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--device", default=None,
                    help="'cpu' for the gloo CPU world; default the card")
     args = p.parse_args(argv)
-    if args.adasum or args.compression in _LATER:
-        raise NotImplementedError(
-            f"{'--adasum' if args.adasum else args.compression}: comes with "
-            f"a later slice of the port; use --compression none, fp16 or bf16")
+    if args.adasum and args.compression in _LOSSY:
+        p.error("--adasum composes with none/fp16/bf16 compression only")
     if args.smoke:
         args.image_size, args.num_iters, args.num_batches_per_iter = 32, 2, 2
         args.batch_size = min(args.batch_size, 2)
@@ -74,12 +85,14 @@ def main(argv=None) -> list[float]:
 
     opt = DistributedOptimizer(
         torch.optim.SGD(model.parameters(), lr=0.01 * n, momentum=0.9),
-        compression=getattr(Compression, args.compression))
+        compression=compressor(args.compression),
+        op=Adasum if args.adasum else Average)
     broadcast_parameters(model, root_rank=0)
     step = make_train_step(loss_fn, opt)
     if basics.rank() == 0:
         print(f"Model: ResNet50  Batch size/card: {args.batch_size}  "
-              f"Cards: {n}  Device: {dev}  Compression: {args.compression}")
+              f"Cards: {n}  Device: {dev}  Compression: {args.compression}"
+              + ("  Op: Adasum" if args.adasum else ""))
 
     float(step(model, batch).loss)                     # warm-up
     img_secs = []

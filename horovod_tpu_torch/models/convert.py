@@ -1,7 +1,8 @@
 """Parameters of the JAX reference → parameters of the port.
 
 ``params_from_jax`` for the Llama parameter tree; ``vision_state_dict_from_flax``
-for the flax variables of the vision models.
+for the flax variables of the vision models; ``compression_state_from_jax``
+for the state of a stateful gradient compressor.
 """
 
 from __future__ import annotations
@@ -69,4 +70,35 @@ def vision_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
                 t = t.permute(3, 2, 0, 1) if t.ndim == 4 else t.t()
             key = ".".join(path[:-1] + (names.get(path[-1], path[-1]),))
             out[key] = t.contiguous()
+    return out
+
+
+def compression_state_from_jax(tree, *, device: str | torch.device | None = None
+                               ) -> list:
+    """The JAX package's stateful-compressor state (the ``comp`` of its
+    optimizer state, numpy or array-like leaves) as the port's: a list in
+    ``jax.tree.leaves`` order (dicts by sorted key), the port's
+    ``DistributedOptimizer`` order for the Llama tree.  A PowerSGD leaf
+    ``(q, residual)`` becomes the port's ``_PowerSGDLeafState``, the dense
+    sentinel (an empty array) and an ``ErrorFeedback`` residual a tensor."""
+    from horovod_tpu_torch.ops.powersgd import _PowerSGDLeafState
+
+    dev = resolve_device(device)
+    out: list = []
+
+    def walk(node):
+        if getattr(node, "_fields", None) == ("q", "residual"):
+            out.append(_PowerSGDLeafState(q=_to_tensor(node.q, dev),
+                                          residual=_to_tensor(node.residual,
+                                                              dev)))
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        else:
+            out.append(_to_tensor(node, dev))
+
+    walk(tree)
     return out

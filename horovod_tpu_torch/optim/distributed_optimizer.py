@@ -3,7 +3,8 @@
 Port of ``horovod_tpu/optim/distributed_optimizer.py``
 (``allreduce_gradients``, ``DistributedOptimizer``, ``TrainStepResult``,
 ``make_train_step``, ``broadcast_parameters``,
-``broadcast_optimizer_state``).  The JAX package wraps an
+``broadcast_optimizer_state``, ``broadcast_object``,
+``allgather_object``).  The JAX package wraps an
 optax transformation inside one compiled SPMD program; the port runs one
 process per GPU and wraps a ``torch.optim.Optimizer``, Horovod's own torch
 idiom: after the backward, :meth:`DistributedOptimizer.synchronize`
@@ -13,8 +14,11 @@ the reduction runs after the whole backward (no hooks, no overlap), and
 clipping, where asked for, comes after it:
 backward → ``synchronize()`` → ``clip_grad_norm_`` → ``step()``.
 
-Top-k (``is_sparse``), stateful compressors (PowerSGD, error feedback),
-process sets and Adasum come with a later slice of the port.
+The reduction is one of: the fused bucket allreduce (``op``, including
+Adasum, ``compression`` none/fp16/bf16/int8/int4, ``process_set``); the
+fork's top-k per gradient (``is_sparse``); or a stateful compressor
+(PowerSGD, error feedback) whose state the wrapper keeps and carries in
+``state_dict()`` under ``"compression"``.
 """
 
 from __future__ import annotations
@@ -28,8 +32,12 @@ import torch.distributed as dist
 
 from horovod_tpu_torch import basics
 from horovod_tpu_torch.ops import collective_ops
-from horovod_tpu_torch.ops.collective_ops import Average, _ReduceOp
-from horovod_tpu_torch.ops.compression import Compression
+from horovod_tpu_torch.ops.collective_ops import (Average, ProcessSet, Sum,
+                                                  _ReduceOp)
+from horovod_tpu_torch.ops.compression import Compression, TopKCompressor
+from horovod_tpu_torch.ops.powersgd import (as_stateful_compressor,
+                                            is_stateful_compressor,
+                                            state_from_plain, state_to_plain)
 from horovod_tpu_torch.utils.tree import leaves, tree_map
 
 
@@ -54,38 +62,56 @@ def allreduce_gradients(
     op: _ReduceOp = Average,
     compression=Compression.none,
     fusion_threshold_bytes: int | None = None,
+    sparse: bool = False,
+    sparse_ratio: float = 0.01,
+    process_set: ProcessSet | None = None,
 ) -> list[torch.Tensor]:
     """All-reduce a list of gradients in place, fused into buckets of at
-    most ``fusion_threshold_bytes`` (one collective per bucket)."""
+    most ``fusion_threshold_bytes`` (one collective per bucket); with
+    ``sparse`` the fork's top-k allreduce of each gradient, unfused."""
+    if sparse and process_set is not None:
+        raise ValueError(
+            "process_set does not compose with the top-k sparse path; "
+            "members-only sparse reduction needs a set-local allgather")
+    if sparse:
+        topk = TopKCompressor(ratio=sparse_ratio)
+        for g in grads:
+            g.copy_(topk.sparse_allreduce(g, average=op is Average))
+        return grads
     return collective_ops.grouped_allreduce_(
         grads, op=op, compression=compression,
-        fusion_threshold_bytes=fusion_threshold_bytes)
+        fusion_threshold_bytes=fusion_threshold_bytes,
+        process_set=process_set)
 
 
-def _check_compression(compression) -> None:
-    later = ("init", "reduce", "quantized_allreduce", "sparse_allreduce")
-    if any(hasattr(compression, a) for a in later):
-        raise NotImplementedError(
-            f"{getattr(compression, '__name__', type(compression).__name__)}:"
-            f" stateful and wire-format compressors come with a later slice "
-            f"of the port; use Compression.none, fp16 or bf16")
+def _params(optimizer) -> list[torch.Tensor]:
+    return [p for g in optimizer.param_groups for p in g["params"]]
 
 
 def _params_with_grad(optimizer) -> list[torch.Tensor]:
-    return [p for g in optimizer.param_groups for p in g["params"]
-            if p.grad is not None]
+    return [p for p in _params(optimizer) if p.grad is not None]
 
 
 class DistributedOptimizer:
     """Wrap a ``torch.optim.Optimizer`` so its updates see the gradients
     reduced over the world (averaged by default).
 
-    Keywords as the reference's: ``op``, ``compression`` (none / fp16 /
-    bf16), ``fusion_threshold_bytes`` (``None``: ``HOROVOD_FUSION_THRESHOLD``),
-    ``local`` (no communication at all) and ``backward_passes_per_step``
-    (k: ``.grad`` sums over k backward passes, as
-    ``optax.MultiSteps(use_grad_mean=False)`` does, and the allreduce and
-    the update run on the k-th; ``step()`` on the others only counts).
+    Keywords as the reference's: ``op`` (Sum, Average, Min, Max,
+    Product, Adasum), ``compression`` (none / fp16 / bf16 / int8 / int4,
+    or a stateful compressor: ``PowerSGDCompressor``, ``ErrorFeedback``),
+    ``fusion_threshold_bytes`` (``None``: ``HOROVOD_FUSION_THRESHOLD``),
+    the fork's ``is_sparse`` with ``sparse_ratio`` (top-k of each
+    gradient), ``process_set``, ``local`` (no communication at all) and
+    ``backward_passes_per_step`` (k: ``.grad`` sums over k backward
+    passes, as ``optax.MultiSteps(use_grad_mean=False)`` does, and the
+    allreduce and the update run on the k-th; ``step()`` on the others
+    only counts, so a stateful compressor's state moves once per k).
+
+    A stateful compressor's state is made at construction from the
+    parameters, one entry a parameter in ``param_groups`` order, and
+    rides ``state_dict()`` under ``"compression"`` (so
+    ``broadcast_optimizer_state`` and checkpoints carry it).  The
+    combinations the JAX package rejects raise ``ValueError``.
     """
 
     def __init__(
@@ -96,24 +122,50 @@ class DistributedOptimizer:
         compression=Compression.none,
         fusion_threshold_bytes: int | None = None,
         is_sparse: bool = False,
+        sparse_ratio: float = 0.01,
         local: bool = False,
         backward_passes_per_step: int = 1,
+        process_set: ProcessSet | None = None,
     ):
-        if is_sparse:
-            raise NotImplementedError(
-                "is_sparse (top-k gradients) comes with a later slice of the "
-                "port")
-        _check_compression(compression)
         collective_ops._resolve_op(None, op)
         if backward_passes_per_step < 1:
             raise ValueError(f"backward_passes_per_step must be >= 1, got "
                              f"{backward_passes_per_step}")
+        # local=True never touches the wire, so residuals and factors would
+        # be dead gradient-sized state: no stateful machinery then.
+        self.stateful = is_stateful_compressor(compression) and not local
+        if self.stateful:
+            compression = as_stateful_compressor(compression)
+            if is_sparse:
+                raise ValueError(
+                    "is_sparse picks the top-k collective; a stateful "
+                    "compressor already defines its own wire — wrap "
+                    "TopKCompressor in ErrorFeedback instead of combining "
+                    "the two flags.")
+            if process_set is not None:
+                raise ValueError(
+                    "process_set does not compose with stateful compressors "
+                    "(PowerSGD / ErrorFeedback): their collectives run over "
+                    "the full axis — silent full-world mixing would corrupt "
+                    "member updates")
+            if op not in (Sum, Average):
+                raise ValueError(
+                    f"stateful compressors support op=Sum/Average, not {op}")
+        elif is_sparse and process_set is not None and not local:
+            raise ValueError(
+                "process_set does not compose with the top-k sparse path; "
+                "members-only sparse reduction needs a set-local allgather")
         self.optimizer = optimizer
         self.op = op
         self.compression = compression
         self.fusion_threshold_bytes = fusion_threshold_bytes
+        self.is_sparse = is_sparse
+        self.sparse_ratio = sparse_ratio
+        self.process_set = process_set
         self.local = local
         self.backward_passes_per_step = backward_passes_per_step
+        self.comp_state = (compression.init(_params(optimizer))
+                           if self.stateful else None)
         self._passes = 0            # backward passes since the last update
         self._synchronized = False
 
@@ -134,12 +186,31 @@ class DistributedOptimizer:
         """All-reduce every ``.grad`` now, in place (once per update)."""
         if self._synchronized:
             return
-        if not self.local:
+        if self.stateful:
+            self._stateful_reduce()
+        elif not self.local:
             allreduce_gradients(
                 [p.grad for p in _params_with_grad(self)], op=self.op,
                 compression=self.compression,
-                fusion_threshold_bytes=self.fusion_threshold_bytes)
+                fusion_threshold_bytes=self.fusion_threshold_bytes,
+                sparse=self.is_sparse, sparse_ratio=self.sparse_ratio,
+                process_set=self.process_set)
         self._synchronized = True
+
+    @torch.no_grad()
+    def _stateful_reduce(self) -> None:
+        """The compressor's ``reduce`` over the parameters that have a
+        gradient, each with its own entry of the state."""
+        params = _params(self.optimizer)
+        idx = [i for i, p in enumerate(params) if p.grad is not None]
+        grads = [params[i].grad for i in idx]
+        reduced, new = self.compression.reduce(
+            grads, [self.comp_state[i] for i in idx],
+            average=self.op is Average)
+        for g, r in zip(grads, reduced):
+            g.copy_(r)
+        for i, st in zip(idx, new):
+            self.comp_state[i] = st
 
     def step(self, closure: Callable | None = None):
         """Count a backward pass; on the k-th, synchronize (unless that was
@@ -157,9 +228,34 @@ class DistributedOptimizer:
         self.optimizer.zero_grad(set_to_none=set_to_none)
 
     def state_dict(self) -> dict:
-        return self.optimizer.state_dict()
+        """The wrapped optimizer's ``state_dict()``, plus the compressor's
+        state under ``"compression"`` when the compressor is stateful."""
+        sd = self.optimizer.state_dict()
+        if self.stateful:
+            sd["compression"] = state_to_plain(self.comp_state)
+        return sd
 
     def load_state_dict(self, state_dict: dict) -> None:
+        """Load :meth:`state_dict`'s format.  A ``"compression"`` entry must
+        be there exactly when this wrapper's compressor is stateful: a
+        mismatch raises ``ValueError`` rather than dropping the saved
+        compressor state or keeping a fresh one."""
+        state_dict = dict(state_dict)
+        comp = state_dict.pop("compression", None)
+        if (comp is not None) != self.stateful:
+            raise ValueError(
+                "the state dict "
+                f"{'holds' if comp is not None else 'lacks'} a stateful "
+                "compressor's state (\"compression\") but this wrapper's "
+                f"compressor is {'' if self.stateful else 'not '}stateful")
+        if self.stateful:
+            params = _params(self.optimizer)
+            if len(comp) != len(params):
+                raise ValueError(
+                    f"compression state has {len(comp)} entries for "
+                    f"{len(params)} parameters")
+            self.comp_state = [state_from_plain([c], p.device)[0]
+                               for c, p in zip(comp, params)]
         self.optimizer.load_state_dict(state_dict)
 
 
@@ -265,15 +361,40 @@ def broadcast_optimizer_state(opt_state: Any, root_rank: int = 0) -> Any:
 
     ``opt_state``: a ``torch.optim.Optimizer`` or
     :class:`DistributedOptimizer`, whose ``state_dict()`` (every state
-    tensor, ``step`` included, and the param groups' hyper-parameters) is
-    broadcast and loaded back, in place, and which is returned; or a tree of
+    tensor, ``step`` included, the param groups' hyper-parameters and a
+    stateful compressor's state) is broadcast and loaded back, in place,
+    and which is returned; or a tree of
     tensors, numpy arrays and Python values, returned as the root's tree
     (arrays stay numpy arrays, scalars keep their types).  Ranks whose
     optimizer has no state yet (no step taken) receive the root's."""
     basics._require_init()
-    opt = (opt_state.optimizer if isinstance(opt_state, DistributedOptimizer)
-           else opt_state)
-    if isinstance(opt, torch.optim.Optimizer):
-        opt.load_state_dict(_broadcast_tree(opt.state_dict(), root_rank))
+    if isinstance(opt_state, (DistributedOptimizer, torch.optim.Optimizer)):
+        opt_state.load_state_dict(
+            _broadcast_tree(opt_state.state_dict(), root_rank))
         return opt_state
     return _broadcast_tree(opt_state, root_rank)
+
+
+def broadcast_object(obj: Any, root_rank: int = 0) -> Any:
+    """Every rank receives ``root_rank``'s picklable ``obj`` (the
+    resume-epoch pattern of reference examples/keras_imagenet_resnet50.py:
+    66-73): ``dist.broadcast_object_list`` on the default group, through
+    this process's device.  A world of one returns ``obj``."""
+    basics._require_init()
+    if basics.size() == 1:
+        return obj
+    box = [obj if basics.rank() == root_rank else None]
+    dist.broadcast_object_list(box, src=root_rank, device=basics.device())
+    return obj if basics.rank() == root_rank else box[0]
+
+
+def allgather_object(obj: Any) -> list:
+    """One picklable object per rank; every rank receives the list in rank
+    order (``dist.all_gather_object`` on the default group).  A world of
+    one returns ``[obj]``."""
+    basics._require_init()
+    if basics.size() == 1:
+        return [obj]
+    out = [None] * basics.size()
+    dist.all_gather_object(out, obj)
+    return out

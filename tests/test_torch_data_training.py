@@ -267,8 +267,14 @@ def test_default_hooks_need_fits_state():
 
 
 def test_model_checkpoint_callback_waits_for_checkpoint_port():
-    with pytest.raises(NotImplementedError, match="checkpoint.py"):
-        callbacks.ModelCheckpointCallback("/nonexistent")
+    """The callback of the port of ``checkpoint.py``: the JAX package's
+    keywords and their check (its runs are in test_torch_checkpoint.py)."""
+    cb = callbacks.ModelCheckpointCallback("/nonexistent", every_epochs=3,
+                                           async_save=True)
+    assert (cb.path, cb.every_epochs, cb.async_save) == ("/nonexistent", 3,
+                                                         True)
+    with pytest.raises(ValueError, match="every_epochs"):
+        callbacks.ModelCheckpointCallback("/nonexistent", every_epochs=0)
 
 
 @pytest.fixture

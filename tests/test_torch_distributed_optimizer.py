@@ -7,8 +7,12 @@ over a rank-major batch.  Port side: two gloo processes under
 from the same weights (``params_from_jax``), through
 ``DistributedOptimizer(torch.optim.AdamW(...))`` and ``make_train_step``
 with clipping at 1.0.  ``llama_tiny`` in float32, three steps; then
-``backward_passes_per_step=2`` against JAX's ``MultiSteps`` path.  The
-workers import only torch and the port.  The example twin that drives the
+``backward_passes_per_step=2`` against JAX's ``MultiSteps`` path; then the
+compressed and alternative reductions: int8, ``ErrorFeedback(TopK)``,
+``PowerSGDCompressor`` (its Q carried from JAX's ``init`` by
+``compression_state_from_jax``), ``is_sparse`` at ratios 0.01 and 1.0 (the
+latter equal to the dense step, as ``tests/test_optimizer.py:70`` holds)
+and ``op=Adasum``.  The workers import only torch and the port.  The example twin that drives the
 same path is tested in tests/test_torch_llama_finetune_example.py.
 """
 
@@ -26,12 +30,17 @@ import torch.multiprocessing as mp
 
 from horovod_tpu_torch import basics
 from horovod_tpu_torch.models import llama as tl
-from horovod_tpu_torch.models.convert import params_from_jax
+from horovod_tpu_torch.models.convert import (compression_state_from_jax,
+                                              params_from_jax)
 from horovod_tpu_torch.optim.distributed_optimizer import (
     DistributedOptimizer, broadcast_parameters, make_train_step, tree_leaves)
 
 WORLD, B, L, LR = 2, 2, 16, 1e-3
-RUNS = {"plain": (1, 3), "accumulate2": (2, 4)}   # (passes per step, steps)
+# name → (passes per step, steps, the reduction's options by name)
+RUNS = {"plain": (1, 3, None), "accumulate2": (2, 4, None),
+        "int8": (1, 3, "int8"), "ef_topk": (1, 3, "ef_topk"),
+        "powersgd": (1, 3, "powersgd"), "sparse0.01": (1, 3, "sparse0.01"),
+        "sparse1.0": (1, 3, "sparse1.0"), "adasum": (1, 3, "adasum")}
 # f32 on both sides.  Per-step losses: the same forward, another summation
 # order.  Parameters: AdamW scales each element's update to about lr
 # whatever its gradient's size, so an element whose gradient is near zero
@@ -57,16 +66,38 @@ def _adamw(params):
                              weight_decay=0.1, eps=1e-8)
 
 
+def _options(name, lib):
+    """DistributedOptimizer keywords of a run, for the port or for JAX."""
+    if name is None:
+        return {}
+    if lib == "port":
+        from horovod_tpu_torch.ops import collective_ops as C
+        from horovod_tpu_torch.ops import compression as comp
+        from horovod_tpu_torch.ops import powersgd as ps
+    else:
+        from horovod_tpu.ops import collective_ops as C
+        from horovod_tpu.ops import compression as comp
+        from horovod_tpu.ops import powersgd as ps
+    return {"int8": lambda: dict(compression=comp.Compression.int8),
+            "ef_topk": lambda: dict(compression=ps.ErrorFeedback(
+                comp.TopKCompressor(ratio=0.01))),
+            "powersgd": lambda: dict(compression=ps.PowerSGDCompressor(
+                rank=4)),
+            "sparse0.01": lambda: dict(is_sparse=True, sparse_ratio=0.01),
+            "sparse1.0": lambda: dict(is_sparse=True, sparse_ratio=1.0),
+            "adasum": lambda: dict(op=C.Adasum)}[name]()
+
+
 def _worker(rank: int, port: int, tree_path: str, out_dir: str) -> None:
     os.environ.update(
         HOROVOD_TPU_PROCESS_ID=str(rank), HOROVOD_TPU_NUM_PROCESSES=str(WORLD),
         HOROVOD_TPU_COORDINATOR=f"127.0.0.1:{port}")
     basics.init("cpu")
     with open(tree_path, "rb") as f:
-        np_tree = pickle.load(f)
+        np_tree, powersgd_state = pickle.load(f)
     cfg = tl.llama_tiny(dtype=torch.float32)
     out = {}
-    for name, (k, steps) in RUNS.items():
+    for name, (k, steps, how) in RUNS.items():
         params = params_from_jax(np_tree, device="cpu")
         if rank == 1:       # a wrong start that the broadcast must repair
             for t in tree_leaves(params):
@@ -74,7 +105,10 @@ def _worker(rank: int, port: int, tree_path: str, out_dir: str) -> None:
         broadcast_parameters(params, root_rank=0)
         for t in tree_leaves(params):
             t.requires_grad_()
-        opt = DistributedOptimizer(_adamw(params), backward_passes_per_step=k)
+        opt = DistributedOptimizer(_adamw(params), backward_passes_per_step=k,
+                                   **_options(how, "port"))
+        if how == "powersgd":       # JAX's Q, carried over
+            opt.comp_state = list(powersgd_state)
         step = make_train_step(tl.make_loss_fn(cfg), opt, max_grad_norm=1.0)
         losses = []
         for tok in _batches(steps):
@@ -99,11 +133,11 @@ def _jax_runs(cfg, params0):
 
     mesh = Mesh(np.asarray(jax.devices()[:WORLD]), ("hvd",))
     result = {}
-    for name, (k, steps) in RUNS.items():
+    for name, (k, steps, how) in RUNS.items():
         tx = hvd.DistributedOptimizer(
             optax.chain(optax.clip_by_global_norm(1.0),
                         optax.adamw(LR, b1=0.9, b2=0.95, weight_decay=0.1)),
-            backward_passes_per_step=k)
+            backward_passes_per_step=k, **_options(how, "jax"))
         opt_state = tx.init(params0)
         step = hvd.make_train_step(jl.make_loss_fn(cfg), tx, mesh=mesh,
                                    donate=False)
@@ -130,10 +164,15 @@ def sides(tmp_path_factory):
     cfg = jl.llama_tiny(dtype=jnp.float32)
     params0 = jl.init_params(cfg, jax.random.PRNGKey(7))
     np_tree = jax.tree_util.tree_map(np.asarray, params0)
+    # The compressor state JAX's DistributedOptimizer.init makes (its Q from
+    # jax.random), as the port's.
+    powersgd_state = compression_state_from_jax(
+        jax.tree_util.tree_map(np.asarray, _options("powersgd", "jax")[
+            "compression"].init(params0)), device="cpu")
     out = tmp_path_factory.mktemp("dopt")
     tree_path = out / "params.pkl"
     with open(tree_path, "wb") as f:
-        pickle.dump(np_tree, f)
+        pickle.dump((np_tree, powersgd_state), f)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -163,7 +202,7 @@ def test_final_params_match_make_train_step(sides, run):
     element further off than AdamW's step bound allows."""
     p0, jax_runs, ranks = sides
     want = jax_runs[run][1]
-    k, steps = RUNS[run]
+    k, steps, _ = RUNS[run]
     bound = 2 * LR * (steps // k)
     for seen in ranks:
         got = seen[run][1]
@@ -173,6 +212,15 @@ def test_final_params_match_make_train_step(sides, run):
             rel = np.linalg.norm(upd_t - upd_j) / np.linalg.norm(upd_j)
             assert rel <= UPDATE_RTOL, (run, a.shape, rel)
             assert np.abs(a - w).max() <= bound
+
+
+def test_sparse_ratio_one_equals_dense(sides):
+    """Top-k of every entry is the dense allreduce, bit for bit."""
+    ranks = sides[2]
+    for seen in ranks:
+        assert seen["sparse1.0"][0] == seen["plain"][0]
+        for a, b in zip(seen["sparse1.0"][1], seen["plain"][1]):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_ranks_stay_identical(sides):
@@ -219,20 +267,38 @@ def test_local_makes_no_collective_call(monkeypatch):
 
 
 def test_later_slice_options_raise():
-    opt = torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=0.1)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        DistributedOptimizer(opt, is_sparse=True)
+    """The options earlier slices refused (``is_sparse``, stateful
+    compressors, Adasum) now construct; the combinations the JAX package
+    rejects raise its ``ValueError``, as does
+    ``backward_passes_per_step=0``."""
+    from horovod_tpu_torch.ops.collective_ops import Adasum, Max, ProcessSet
+    from horovod_tpu_torch.ops.compression import TopKCompressor
+    from horovod_tpu_torch.ops.powersgd import (ErrorFeedback,
+                                                PowerSGDCompressor)
 
-    class Stateful:
-        @staticmethod
-        def init(grads):
-            return None
-
-    with pytest.raises(NotImplementedError, match="later slice"):
-        DistributedOptimizer(opt, compression=Stateful)
-    from horovod_tpu_torch.ops.collective_ops import Adasum
-
-    with pytest.raises(NotImplementedError, match="later slice"):
-        DistributedOptimizer(opt, op=Adasum)
-    with pytest.raises(ValueError, match="backward_passes_per_step"):
-        DistributedOptimizer(opt, backward_passes_per_step=0)
+    w = torch.zeros(64, 64, requires_grad=True)
+    opt = torch.optim.SGD([w], lr=0.1)
+    assert DistributedOptimizer(opt, is_sparse=True).is_sparse
+    assert DistributedOptimizer(opt, op=Adasum).op is Adasum
+    stateful = DistributedOptimizer(opt, compression=PowerSGDCompressor)
+    assert stateful.stateful and len(stateful.comp_state) == 1
+    ef = ErrorFeedback(TopKCompressor(ratio=0.1))
+    assert DistributedOptimizer(opt, compression=ef).comp_state[0].shape == (
+        64, 64)
+    # local=True skips the stateful machinery, even where it would clash.
+    local = DistributedOptimizer(opt, compression=ef, local=True,
+                                 is_sparse=True)
+    assert not local.stateful and local.comp_state is None
+    for kw, match in (
+            (dict(compression=ef, is_sparse=True), "is_sparse"),
+            (dict(compression=ef, process_set=ProcessSet([0])),
+             "process_set"),
+            (dict(compression=PowerSGDCompressor(), op=Max), "Sum/Average"),
+            (dict(compression=PowerSGDCompressor(), op=Adasum),
+             "Sum/Average"),
+            (dict(is_sparse=True, process_set=ProcessSet([0])), "top-k"),
+            (dict(backward_passes_per_step=0), "backward_passes_per_step")):
+        with pytest.raises(ValueError, match=match):
+            DistributedOptimizer(opt, **kw)
+    with pytest.raises(ValueError, match="unknown reduce op"):
+        DistributedOptimizer(opt, op=object())

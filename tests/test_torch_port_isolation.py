@@ -44,8 +44,13 @@ def test_port_modules_import_without_jax():
             "horovod_tpu_torch.models.inception",
             "horovod_tpu_torch.models.mnist",
             "horovod_tpu_torch.examples.mnist",
-            "horovod_tpu_torch.examples.synthetic_benchmark"} <= set(mods)
-    assert len(mods) >= 34
+            "horovod_tpu_torch.examples.synthetic_benchmark",
+            "horovod_tpu_torch.ops.compression",
+            "horovod_tpu_torch.ops.collective_ops",
+            "horovod_tpu_torch.ops.powersgd",
+            "horovod_tpu_torch.checkpoint",
+            "horovod_tpu_torch.models.convert"} <= set(mods)
+    assert len(mods) >= 36
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"

@@ -4,7 +4,8 @@ and ``python -m horovod_tpu_torch.examples.synthetic_benchmark``.
 Each drives the port's data-parallel path as a user would (``init``, the LR
 scaled by the world size, ``DistributedOptimizer``, the broadcasts,
 ``make_train_step``), here with ``--smoke --device cpu`` in a world of one;
-the flags of paths that come with later slices raise.
+``--ckpt-dir`` writes rank-0 checkpoints and every ``--compression`` and
+``--adasum`` of the JAX twin trains.
 """
 
 from __future__ import annotations
@@ -49,9 +50,17 @@ def test_mnist_twin_loss_falls(no_launcher):
     assert losses[1] < losses[0]
 
 
-def test_mnist_twin_checkpoint_flag_waits_for_its_slice(no_launcher):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        mnist.main(["--smoke", "--device", "cpu", "--ckpt-dir", "ckpt"])
+def test_mnist_twin_checkpoint_flag_waits_for_its_slice(no_launcher,
+                                                        tmp_path):
+    """``--ckpt-dir`` (the JAX twin's ``examples/jax_mnist.py:69-71``):
+    one rank-0 checkpoint an epoch, holding the parameters and the
+    optimizer state."""
+    import torch
+
+    mnist.main(["--smoke", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    assert sorted(os.listdir(tmp_path)) == ["step_0", "step_1"]
+    saved = torch.load(tmp_path / "step_1", weights_only=True)
+    assert set(saved) == {"params", "opt"} and saved["params"]
 
 
 @pytest.mark.parametrize("compression", ["none", "fp16", "bf16"])
@@ -69,6 +78,19 @@ def test_synthetic_benchmark_twin_reports_img_per_sec(no_launcher, capsys,
                                    ["--compression", "powersgd"],
                                    ["--compression", "ef-topk"],
                                    ["--adasum"]])
-def test_synthetic_benchmark_twin_later_flags_raise(no_launcher, flags):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        synthetic_benchmark.main(["--smoke", "--device", "cpu", *flags])
+def test_synthetic_benchmark_twin_later_flags_raise(no_launcher, capsys,
+                                                    flags):
+    """The JAX twin's lossy compressors and ``--adasum`` train and report
+    img/sec; ``--adasum`` with a lossy compressor is refused, as the twin's
+    ``p.error`` does."""
+    rates = synthetic_benchmark.main(["--smoke", "--device", "cpu", *flags])
+    assert len(rates) == 2 and all(r > 0 for r in rates)
+    out = capsys.readouterr().out
+    assert "Img/sec per card:" in out
+    if flags == ["--adasum"]:
+        assert "Op: Adasum" in out
+        return
+    assert f"Compression: {flags[1]}" in out
+    with pytest.raises(SystemExit):
+        synthetic_benchmark.main(["--smoke", "--device", "cpu", "--adasum",
+                                  *flags])
