@@ -37,6 +37,23 @@ Phases, one JSON line each; any failure exits non-zero before the result:
 6. ``serve batcher``: a 512-token shared prefix (``precompute_prefix``,
    through the kernel) and a ``ContinuousBatcher`` answering eight
    requests; first tokens are held against solo ``generate``.
+   ``serve speculative``: ``speculative_generate`` on generate's prompts,
+   32 new tokens, four drafts a round, with a random draft of
+   Llama-3.2-1B's widths (its prefill launches the D = 64 forward at 32/8
+   heads, causal, once per layer) and with the target as its own draft;
+   rounds, acceptance, tokens/s against ``generate`` at the same budget,
+   first tokens equal to generate's, every token greedy-consistent (its
+   logit within ``MARGIN_RTOL`` of the largest at its position in one
+   target pass over prompt + output).  ``serve engine``: ``ServeEngine``
+   (8 slots of 2048 positions, 256-token windows and blocks) over 16
+   requests on a shared 512-token prefix, run four times in one process:
+   FIFO, ``prefix_cache=True``, an overcommitted pool of 25 blocks with
+   ``preempt_after=2``, and ``spec=True``; budgets exact, every token
+   greedy-consistent, one argument signature per program, the block walk
+   after every step, prefix hits, preemptions and proposals seen, paged
+   logits equal to dense ones bit for bit; served tokens/s, TTFT and TPOT,
+   the tick's phase shares, the memory report, and one profiled tick at
+   eight slots beside one profiled ``generate`` decode step at B = 4.
 7. ``train``: Llama-3-8B width cut to ``--train-layers`` (default 8), remat,
    flash attention, f32 master weights and bf16 compute, through the port's
    ``basics.init`` (NCCL, a world of one), ``broadcast_parameters``,
@@ -55,8 +72,9 @@ Phases, one JSON line each; any failure exits non-zero before the result:
    kernels at head dim 64, the ViT's (the Hopper D = 64 kernels for
    bf16/f16, the ``mma.sync`` kernels for f32): the ViT-B/16 shape (B=64,
    L=196, 12 heads, non-causal) in bf16, f16 and f32, a causal case and
-   tails, each held against its plain version; at the ViT shape the times,
-   bounds, ``prev_ms`` and SDPA.
+   tails, and the draft model's prefill shape (B=4, L=1024, 32/8 heads,
+   causal), each held against its plain version; at the ViT shape and the
+   draft shape the times, bounds, ``prev_ms`` and SDPA.
 9. ``train resnet101`` (``bench.py _bench_resnet``): ResNet-101 at full
    depth, batch 64 at 224 × 224 from ``synthetic_imagenet``, bf16 compute
    with f32 parameters and BN, ``SGD(0.01, momentum=0.9)`` through
@@ -670,6 +688,11 @@ def _sdpa_backward_ms(q, k, v, do, b, h, kvh, l, d, causal):
 # bidirectional; ``bench.py _bench_vit``'s batch of 64.
 VIT_HEADS = (12, 12, 64)
 VIT_SHAPE = ("vit_b16_b64_l196", 64, 196, False)
+# The draft model's prefill in serve speculative: Llama-3.2-1B's 32 query
+# heads over 8 KV heads of 64, causal, generate's four prompts padded to
+# 1024.
+DRAFT_HEADS = (32, 8, 64)
+DRAFT_PREFILL_SHAPE = ("causal_b4_l1024_gqa32x8", 4, 1024, True)
 
 
 def phase_kernel_d64(seed: int) -> dict:
@@ -685,7 +708,6 @@ def phase_kernel_d64(seed: int) -> dict:
 
     from horovod_tpu_torch.parallel import flash_attention as fa
 
-    H, KVH, D = VIT_HEADS
     names = {torch.bfloat16: "bf16", torch.float16: "f16",
              torch.float32: "f32"}
     cases = [(*VIT_SHAPE, torch.bfloat16), (*VIT_SHAPE, torch.float16),
@@ -694,10 +716,13 @@ def phase_kernel_d64(seed: int) -> dict:
              ("noncausal_b2_l1", 2, 1, False, torch.bfloat16),
              ("noncausal_b2_l63", 2, 63, False, torch.bfloat16),
              ("causal_b2_l65", 2, 65, True, torch.float16),
-             ("noncausal_b1_l1000", 1, 1000, False, torch.bfloat16)]
+             ("noncausal_b1_l1000", 1, 1000, False, torch.bfloat16),
+             (*DRAFT_PREFILL_SHAPE, torch.bfloat16)]
     gen = torch.Generator(device=DEV).manual_seed(seed + 4)
     fwd_rows, bwd_rows = [], []
     for name, b, l, causal, dtype in cases:
+        H, KVH, D = (DRAFT_HEADS if name == DRAFT_PREFILL_SHAPE[0]
+                     else VIT_HEADS)
         tname = names[dtype]
         q, k, v, do = (torch.randn((b * h, l, D), generator=gen,
                                    device=DEV).to(dtype)
@@ -750,6 +775,9 @@ def phase_kernel_d64(seed: int) -> dict:
                                       heads=VIT_HEADS))
             brow["times"] = _time_backward(q, k, v, do, lse, delta, b, l,
                                            causal, tname, heads=VIT_HEADS)
+        if frow["ok"] and name == DRAFT_PREFILL_SHAPE[0]:
+            frow["times"] = _time_forward(q, k, v, b, l, causal, 64, tname,
+                                          heads=DRAFT_HEADS)
         fwd_rows.append(frow)
         bwd_rows.append(brow)
         emit("kernel flash_fwd d64", **frow)
@@ -773,21 +801,34 @@ def _model(n_layers: int, seed: int):
     return cfg, params
 
 
-def phase_generate(cfg, params, seed: int) -> dict:
+# serve generate's (and serve speculative's) four ragged prompts, padded
+# to 1024
+GEN_LENGTHS = [300, 517, 777, 1024]
+
+
+def _generate_prompt(cfg, seed: int):
+    """serve generate's prompts from ``seed``: ([4, 1024] tokens, lengths)
+    on the card."""
     import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    prompt = np.zeros((len(GEN_LENGTHS), 1024), np.int64)
+    for r, n in enumerate(GEN_LENGTHS):
+        prompt[r, :n] = rng.randint(0, cfg.vocab_size, n)
+    return (torch.as_tensor(prompt, device=DEV),
+            torch.as_tensor(GEN_LENGTHS, device=DEV))
+
+
+def phase_generate(cfg, params, seed: int) -> dict:
     import torch
 
     from horovod_tpu_torch.models import llama
     from horovod_tpu_torch.parallel import flash_attention as fa
 
-    rng = np.random.RandomState(seed)
     b, width, n_new = 4, 1024, 16
-    lengths = [300, 517, 777, 1024]
-    prompt = np.zeros((b, width), np.int64)
-    for r, n in enumerate(lengths):
-        prompt[r, :n] = rng.randint(0, cfg.vocab_size, n)
-    prompt_t = torch.as_tensor(prompt, device=DEV)
-    lengths_t = torch.as_tensor(lengths, device=DEV)
+    lengths = GEN_LENGTHS
+    prompt_t, lengths_t = _generate_prompt(cfg, seed)
 
     # warm-up (cuBLAS handles, the kernel library) outside the counted run
     llama.prefill(params, prompt_t[:1, :64], cfg,
@@ -898,6 +939,397 @@ def phase_batcher(cfg, params, seed: int) -> dict:
     if not out["ok"]:
         raise PhaseError("serve batcher failed its checks")
     return {"launches": launches}
+
+
+# serve speculative: generate's prompts, 32 new tokens, four drafts a round,
+# a cache deep enough for the verify overshoot (1024 + 32 + 4 + 1).
+SPEC_NEW, SPEC_K = 32, 4
+SPEC_MAX_LEN = 1024 + SPEC_NEW + SPEC_K + 1
+
+
+def _draft_1b(seed: int):
+    """A random bf16 draft with Llama-3.2-1B's published widths (dim 2048,
+    16 layers, 32 query heads over 8 KV heads of 64, FFN 8192, the Llama-3
+    vocabulary and RoPE base); its RoPE scaling and tied embeddings are
+    left out, as ``LlamaConfig`` expresses neither."""
+    import torch
+
+    from horovod_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(dim=2048, n_layers=16, n_heads=32, n_kv_heads=8,
+                          ffn_dim=8192, attn_impl="flash",
+                          param_dtype=torch.bfloat16)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return cfg, llama.init_params(cfg, gen, device=DEV)
+
+
+def _greedy_consistency(params, cfg, prompts, outputs) -> dict:
+    """Each emitted token against one target pass over prompt +
+    output[:-1] (``forward``, the flash prefill path): its logit must be
+    within ``MARGIN_RTOL`` · max|logit| of that position's largest logit,
+    the target's greedy choice up to a bf16 near-tie, without asking two
+    batch shapes to round alike.  ``worst`` is the largest gap seen, as a
+    share of its position's max|logit|."""
+    import torch
+
+    from horovod_tpu_torch.models import llama
+
+    checked = passed = 0
+    worst = 0.0
+    seen = set()
+    for prompt, out in zip(prompts, outputs):
+        key = (tuple(prompt), tuple(out))
+        if key in seen:
+            continue
+        seen.add(key)
+        toks = torch.as_tensor([list(prompt) + list(out[:-1])], device=DEV)
+        with torch.no_grad():
+            hidden = llama.forward(params, toks, cfg, return_hidden=True)
+            logits = (hidden[0, len(prompt) - 1:]
+                      @ params["lm_head"].to(cfg.dtype)).float()
+        picked = logits[torch.arange(len(out), device=DEV),
+                        torch.as_tensor(list(out), device=DEV)]
+        gap = (logits.max(dim=-1).values - picked) / logits.abs().amax(-1)
+        checked += len(out)
+        passed += int((gap <= MARGIN_RTOL).sum())
+        worst = max(worst, float(gap.max()))
+    return {"tokens_checked": checked, "tokens_passed": passed,
+            "worst_gap_share": worst, "margin_rtol": MARGIN_RTOL,
+            "ok": checked > 0 and passed == checked}
+
+
+def phase_speculative(cfg, params, seed: int) -> dict:
+    """``speculative_generate`` on generate's four ragged prompts, 32 new
+    tokens, four drafts a round: with (i) a random draft of Llama-3.2-1B's
+    widths, whose prefill runs the D = 64 forward at 32/8 heads, causal,
+    and (ii) the target as its own draft (the accept-all path).  Held
+    against ``generate`` at the same budget in the same process."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    prompt_t, lengths_t = _generate_prompt(cfg, seed)
+    prompts = [prompt_t[r, :n].tolist() for r, n in enumerate(GEN_LENGTHS)]
+    b = len(prompts)
+    sync()
+    t0 = time.perf_counter()
+    want = llama.generate(params, prompt_t, cfg, max_new_tokens=SPEC_NEW,
+                          prompt_lengths=lengths_t)
+    sync()
+    t_gen = time.perf_counter() - t0
+    want = want.cpu().numpy()
+
+    dcfg, dparams = _draft_1b(seed + 7)
+    dense = dataclasses.replace(dcfg, attn_impl="dense")
+    logits_f, _ = llama.prefill(dparams, prompt_t, dcfg,
+                                llama.init_cache(dcfg, b, 1024, device=DEV),
+                                lengths=lengths_t)
+    logits_d, _ = llama.prefill(dparams, prompt_t, dense,
+                                llama.init_cache(dense, b, 1024, device=DEV),
+                                lengths=lengths_t)
+    scale = float(logits_d.abs().max())
+    err = float((logits_f - logits_d).abs().max())
+    del logits_f, logits_d
+
+    out = {"B": b, "prompt_lengths": GEN_LENGTHS, "new_tokens": SPEC_NEW,
+           "draft_k": SPEC_K, "max_len": SPEC_MAX_LEN,
+           "n_layers": cfg.n_layers, "generate_s": t_gen,
+           "generate_tokens_per_s": b * SPEC_NEW / t_gen,
+           "draft_prefill_logits_max_abs_diff_flash_vs_dense": err,
+           "draft_prefill_logits_max_abs": scale, "logits_rtol": LOGIT_RTOL,
+           "drafts": {}}
+    ok = err <= LOGIT_RTOL * scale
+    launches = {64: 0, 128: 0}
+    for name, dc, dp, want_launches in (
+            ("llama3.2-1b widths, random", dcfg, dparams,
+             {128: cfg.n_layers, 64: dcfg.n_layers}),
+            ("the target itself", cfg, params, {128: 2 * cfg.n_layers,
+                                                64: 0})):
+        stats: dict = {}
+        fa.launches = 0
+        fa.fwd_launches_by_dim.update({64: 0, 128: 0})
+        t0 = time.perf_counter()
+        got = serving.speculative_generate(
+            params, cfg, dp, dc, prompt_t, max_new_tokens=SPEC_NEW,
+            draft_k=SPEC_K, max_len=SPEC_MAX_LEN, prompt_lengths=lengths_t,
+            stats=stats)
+        sync()
+        seconds = time.perf_counter() - t0
+        by_dim = dict(fa.fwd_launches_by_dim)
+        for d in launches:
+            launches[d] += by_dim[d]
+        got = got.cpu().numpy()
+        acc = np.stack(stats["accepted_per_round"])        # [rounds, B]
+        greedy = _greedy_consistency(params, cfg, prompts, got.tolist())
+        row = {
+            "draft": {"dim": dc.dim, "n_layers": dc.n_layers,
+                      "heads": [dc.n_heads, dc.n_kv_heads, dc.head_dim],
+                      "ffn_dim": dc.ffn_dim},
+            "seconds": seconds, "tokens_per_s": b * SPEC_NEW / seconds,
+            "vs_generate": t_gen / seconds, "rounds": stats["rounds"],
+            "mean_accepted_per_row_round": float(acc.mean()),
+            "rounds_accepting_all_on_every_row": int(
+                (acc == SPEC_K).all(axis=1).sum()),
+            "max_length_seen": stats["max_length_seen"],
+            "flash_launches_by_head_dim": by_dim,
+            "expected_launches_by_head_dim": want_launches,
+            "first_tokens_equal_generate": bool(
+                (got[:, 0] == want[:, 0]).all()),
+            "token_agreement_with_generate": float((got == want).mean()),
+            "greedy_consistency": greedy,
+        }
+        row["ok"] = (by_dim == want_launches and greedy["ok"]
+                     and row["first_tokens_equal_generate"])
+        if dc is cfg:
+            row["ok"] = row["ok"] and row[
+                "rounds_accepting_all_on_every_row"] >= 1
+        out["drafts"][name] = row
+        ok = ok and row["ok"]
+    out["ok"] = ok
+    emit("serve speculative", **out)
+    del dparams
+    torch.cuda.empty_cache()
+    if not ok:
+        raise PhaseError("serve speculative failed its checks")
+    return {"launches": launches}
+
+
+# serve engine: the reference's engine defaults at Llama-3-8B width, eight
+# slots of 2048 positions, 256-token prefill windows and blocks (65 blocks
+# of 32 MiB: 2 × 2 B × 32 layers × 256 × 8 × 128, trash included).
+ENGINE = {"n_slots": 8, "max_len": 2048, "chunk": 256}
+ENGINE_SUFFIXES = (1, 37, 100, 255, 256, 300, 513, 700)
+ENGINE_BUDGETS = (8, 32, 64)
+
+
+def _engine_requests(cfg, seed: int, *, phrase: bool = False):
+    """16 requests: one random 512-token system prefix plus a suffix of
+    each length in ``ENGINE_SUFFIXES`` twice (other tokens each time),
+    budgets cycling through ``ENGINE_BUDGETS``.  ``phrase``: each suffix
+    is a random 64-token phrase and then as much of it again, repeated, so
+    the prompt-lookup drafter finds earlier occurrences."""
+    import numpy as np
+
+    from horovod_tpu_torch.serving import Request
+
+    rng = np.random.RandomState(seed + 2)
+    system = rng.randint(0, cfg.vocab_size, 512).tolist()
+    reqs = []
+    for i in range(2 * len(ENGINE_SUFFIXES)):
+        n = ENGINE_SUFFIXES[i % len(ENGINE_SUFFIXES)]
+        if phrase:
+            p = rng.randint(0, cfg.vocab_size, 64).tolist()
+            suffix = p + (p * (n // 64 + 1))[:n]
+        else:
+            suffix = rng.randint(0, cfg.vocab_size, n).tolist()
+        reqs.append(Request(prompt=system + suffix,
+                            max_new_tokens=ENGINE_BUDGETS[i % 3]))
+    return reqs
+
+
+def _profile_call(fn) -> dict:
+    """``fn`` once under ``torch.profiler``: kernels, busy and wall ms,
+    the device's idle share and the top kernels by device time."""
+    import torch
+
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    bd = _device_breakdown(prof, wall)
+    return {k: bd[k] for k in ("kernels", "wall_ms", "device_busy_ms",
+                               "device_idle_share", "ms_by_kind",
+                               "top_kernels")}
+
+
+def _engine_run(params, cfg, reqs, *, profile_tick: bool = False,
+                **kw) -> tuple[dict, list]:
+    """Serve ``reqs`` through a fresh ``ServeEngine`` (a registry of its
+    own) and return its report and the tokens of each request;
+    ``profile_tick`` adds the profiler's phase shares and the memory
+    report, then submits eight more requests and profiles one tick with
+    all eight slots decoding."""
+    import torch
+
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.serving import Request
+    from horovod_tpu_torch.serving_scheduler import DECODE, PREFILL, ServeEngine
+
+    reg = metrics.MetricsRegistry(event_log=None)
+    eng = ServeEngine(params, cfg, **ENGINE, metrics=reg,
+                      profile=profile_tick, **kw)
+    sync()
+    t0 = time.perf_counter()
+    results = eng.run(reqs)
+    sync()
+    wall = time.perf_counter() - t0
+    snap = eng.metrics_snapshot()
+    hist = snap["histograms"]
+    sizes = eng.compile_cache_sizes()
+    want_sizes = ({"tick": 0, "chunk": 1, "set_row": 1, "spec_tick": 1}
+                  if eng.spec else {"tick": 1, "chunk": 1, "set_row": 1})
+    tokens = sum(len(r) for r in results)
+    out = {
+        "options": dict(kw),
+        "requests": len(reqs), "tokens": tokens, "steps": eng.step_index,
+        "wall_s": wall, "served_tokens_per_s": tokens / wall,
+        "ttft_s": {q: hist["serve.ttft_s"][q] for q in ("p50", "p99")},
+        "tpot_s": {q: hist["serve.tpot_s"][q] for q in ("p50", "p99")},
+        "counters": dict(eng.counters),
+        "prefix_counters": dict(eng.prefix_counters),
+        "spec_counters": dict(eng.spec_counters),
+        "compile_cache_sizes": sizes,
+        "retrace": snap["counters"]["serve.retrace"],
+        "statuses": sorted({r.status for r in results}),
+        "budgets_exact": all(r.status == "OK"
+                             and len(r) == q.max_new_tokens
+                             for r, q in zip(results, reqs)),
+    }
+    out["signature_ok"] = sizes == want_sizes and out["retrace"] == 0
+    if profile_tick:
+        out["profile_phases_pct"] = {
+            p: v["pct_of_tick"] for p, v in snap["profile"]["phases"].items()}
+        out["profile_tick_mean_ms"] = snap["profile"]["tick"]["mean_s"] * 1e3
+        out["memory_report"] = snap["memory"]
+        system = reqs[0].prompt[:512]
+        for i in range(ENGINE["n_slots"]):
+            eng.submit(Request(prompt=system + [i], max_new_tokens=64))
+        while not (all(s.state == DECODE for s in eng._slots)
+                   and not any(s.state == PREFILL for s in eng._slots)):
+            eng.step()
+        eng.step()                    # one warm tick at eight slots
+        out["profiled_tick"] = _profile_call(eng.step)
+        while eng.pending():
+            eng.step()
+    del eng
+    torch.cuda.empty_cache()
+    return out, [list(r) for r in results]
+
+
+def _paged_equals_dense(params, cfg, seed: int) -> dict:
+    """One tick at the engine's shape (8 rows, 2048 positions, 256-token
+    blocks): a pool whose gathered rows hold a dense cache's values gives
+    ``decode_chunk``'s logits bit for bit."""
+    import torch
+
+    from horovod_tpu_torch.models import llama
+
+    b, m, bs = ENGINE["n_slots"], ENGINE["max_len"], ENGINE["chunk"]
+    per = m // bs
+    gen = torch.Generator(device=DEV).manual_seed(seed + 3)
+    dense = llama.init_cache(cfg, b, m, device=DEV)
+    for t in (dense.k, dense.v):
+        for layer in range(cfg.n_layers):
+            t[layer].copy_(torch.randn(t[layer].shape, generator=gen,
+                                       device=DEV))
+    lengths = torch.randint(1, m - 1, (b,), generator=gen, device=DEV)
+    paged = llama.init_paged_cache(cfg, b, m, block_size=bs, device=DEV)
+    table = (torch.randperm(b * per, generator=gen, device=DEV)
+             + 1).view(b, per)
+    paged.block_table.copy_(table)
+    paged.length.copy_(lengths)
+    for r in range(b):
+        for j in range(per):
+            paged.k[:, table[r, j]] = dense.k[:, r, j * bs:(j + 1) * bs]
+            paged.v[:, table[r, j]] = dense.v[:, r, j * bs:(j + 1) * bs]
+    dense = dense._replace(length=lengths.clone())
+    toks = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                         device=DEV)
+    want, _ = llama.decode_chunk(params, toks, cfg, dense)
+    got, _ = llama.decode_chunk_paged(params, toks, cfg, paged)
+    sync()
+    out = {"rows": b, "positions": m, "block_size": bs,
+           "logits_bit_equal": bool(torch.equal(got, want)),
+           "max_abs_diff": float((got - want).abs().max())}
+    del dense, paged
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_engine(cfg, params, seed: int) -> dict:
+    """``ServeEngine`` at Llama-3-8B width: four runs of 16 requests in one
+    process, (a) FIFO, (b) ``prefix_cache=True``, (c) an overcommitted pool
+    of 25 blocks (three full slots and trash) with ``preempt_after=2``, (d)
+    ``spec=True, draft_k=4`` on prompts with a repeated phrase; every token
+    held to greedy consistency, one argument signature per program, the
+    block walk after every step, paged == dense bit for bit, and one
+    profiled tick at eight slots beside one profiled ``generate`` decode
+    step at B = 4."""
+    import torch
+
+    from horovod_tpu_torch.models import llama
+
+    os.environ["HVD_TORCH_VERIFY_BLOCKS"] = "1"
+    try:
+        # warm-up at the tick's shapes on a small pool, outside the runs
+        warm = _engine_requests(cfg, seed)[:2]
+        for r in warm:
+            r.max_new_tokens = 2
+        _engine_run(params, cfg, warm, n_blocks=17)
+        reqs = _engine_requests(cfg, seed)
+        runs = {}
+        outputs = {}
+        for name, kw in (("a_fifo", {}), ("b_prefix_cache",
+                                          {"prefix_cache": True}),
+                         ("c_overcommitted", {"n_blocks": 25,
+                                              "preempt_after": 2}),
+                         ("d_spec", {"spec": True, "draft_k": 4})):
+            rq = (_engine_requests(cfg, seed, phrase=True)
+                  if name == "d_spec" else reqs)
+            runs[name], outputs[name] = _engine_run(
+                params, cfg, rq, profile_tick=name == "a_fifo", **kw)
+            runs[name]["greedy_consistency"] = _greedy_consistency(
+                params, cfg, [r.prompt for r in rq], outputs[name])
+            emit("serve engine run", run=name, **runs[name])
+    finally:
+        os.environ.pop("HVD_TORCH_VERIFY_BLOCKS", None)
+    paged = _paged_equals_dense(params, cfg, seed)
+
+    prompt_t, lengths_t = _generate_prompt(cfg, seed)
+    _, cache = llama.prefill(params, prompt_t, cfg,
+                             llama.init_cache(cfg, 4, 1040, device=DEV),
+                             lengths=lengths_t)
+    tok = torch.zeros(4, dtype=torch.int64, device=DEV)
+    llama.decode_step(params, tok, cfg, cache)          # warm
+    decode_profile = _profile_call(
+        lambda: llama.decode_step(params, tok, cfg, cache))
+    del cache
+    torch.cuda.empty_cache()
+
+    a, b_, c, d = (runs[k] for k in ("a_fifo", "b_prefix_cache",
+                                      "c_overcommitted", "d_spec"))
+    checks = {
+        "budgets_exact": all(r["budgets_exact"] for r in runs.values()),
+        "greedy_consistency": all(r["greedy_consistency"]["ok"]
+                                  for r in runs.values()),
+        "one_signature_per_program": all(r["signature_ok"]
+                                         for r in runs.values()),
+        "block_invariants": True,     # the walk raises on a violation
+        "prefix_hits": b_["prefix_counters"]["hits"] > 0
+        and b_["prefix_counters"]["tokens_skipped"] > 0,
+        "preemptions": c["counters"]["preemptions"] >= 1,
+        "spec_proposed": d["spec_counters"]["proposed"] > 0,
+        "paged_equals_dense": paged["logits_bit_equal"],
+    }
+    out = {"engine": ENGINE, "n_layers": cfg.n_layers,
+           "block_bytes": a["memory_report"]["kv"]["block_bytes"],
+           "pool_bytes": a["memory_report"]["kv"]["total_bytes"],
+           "served_tokens_per_s": {k: r["served_tokens_per_s"]
+                                   for k, r in runs.items()},
+           "profiled_tick_8_slots": a["profiled_tick"],
+           "profiled_generate_decode_step_b4": decode_profile,
+           "paged_vs_dense": paged, "checks": checks,
+           "ok": all(checks.values())}
+    emit("serve engine", **out)
+    if not out["ok"]:
+        raise PhaseError(f"serve engine failed its checks: {checks}")
+    return out
 
 
 def _train_flops(cfg, tokens: int) -> float:
@@ -1936,6 +2368,10 @@ def main(argv=None) -> int:
         gen = phase_generate(cfg, params, args.seed)
         phase = "serve batcher"
         bat = phase_batcher(cfg, params, args.seed)
+        phase = "serve speculative"
+        spec = phase_speculative(cfg, params, args.seed)
+        phase = "serve engine"
+        phase_engine(cfg, params, args.seed)
         del params
         torch.cuda.empty_cache()
         phase = "train"
@@ -1964,7 +2400,7 @@ def main(argv=None) -> int:
 
         basics.shutdown()
     print(json.dumps({"kernels": _kernel_rows(build, kern, kern_bwd, gen, bat,
-                                              train, kern64, vit)}),
+                                              spec, train, kern64, vit)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
@@ -1983,7 +2419,7 @@ def _ptx(build, kernel: str) -> dict:
     return out
 
 
-def _kernel_rows(build, kern, kern_bwd, gen, bat, train, kern64,
+def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
                  vit) -> list[dict]:
     """One row per kernel and head dim: its launches on the main paths
     (D = 128: serving's generate and batcher, the Llama train steps; D =
@@ -2007,6 +2443,7 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, train, kern64,
         "source": "horovod_tpu_torch/csrc/flash_fwd.cu",
         "replaces": f"{src}:62",
         "launches": (gen["launches"] + bat["launches"]
+                     + spec["launches"][128]
                      + train["launches"]["flash_fwd"]),
         "max_abs_err": max(c["o_max_abs_err"] for c in kern["cases"]
                            if c["dtype"] == "bf16"),
@@ -2068,7 +2505,8 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, train, kern64,
             "source": f"horovod_tpu_torch/csrc/{fa._LIBRARY[entry]}.cu",
             "replaces": f"{src}:{line}",
             "head_dim": 64, "shape": VIT_SHAPE[0],
-            "launches": vit["launches_total"][name.removesuffix("_d64")],
+            "launches": (vit["launches_total"][name.removesuffix("_d64")]
+                         + (spec["launches"][64] if grads == ("o",) else 0)),
             "max_abs_err": max(c[f"{g}_max_abs_err"] for c in cases
                                for g in grads if c["dtype"] == "bf16"),
             **{k: t[k] for k in keys}, "library_ms": lib,
@@ -2077,6 +2515,12 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, train, kern64,
         }
         if design == "cuda wgmma+tma":
             row["smem_bytes"] = fa.smem_bytes(fa._LIBRARY[entry], entry)
+        if grads == ("o",):
+            draft = next(c for c in kern64["fwd"]
+                         if c["case"] == DRAFT_PREFILL_SHAPE[0])["times"]
+            row["draft_prefill_shape"] = {
+                "shape": DRAFT_PREFILL_SHAPE[0],
+                **{k: draft[k] for k in keys + ("library_ms",)}}
         rows.append(row)
     return rows
 

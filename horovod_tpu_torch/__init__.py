@@ -3,9 +3,10 @@
 The JAX package ``horovod_tpu`` is the reference; each module here mirrors
 its counterpart's path and public names (``basics.py``, ``ops/``,
 ``optim/distributed_optimizer.py``, ``parallel/attention.py``,
-``parallel/flash_attention.py``, ``models/llama.py``, ``serving.py``) and
-is tested against it on the same inputs.  This package imports ``torch``
-and never ``jax`` nor anything of ``horovod_tpu``.
+``parallel/flash_attention.py``, ``models/llama.py``, ``serving.py``,
+``serving_scheduler.py``) and is tested against it on the same inputs.
+This package imports ``torch`` and never ``jax`` nor anything of
+``horovod_tpu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request they raise (no silent fallback).

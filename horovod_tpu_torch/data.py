@@ -8,10 +8,9 @@ host's chips; here each process is one rank, as in Horovod, and
 ``[r·b, (r+1)·b)`` of the JAX loader's batch s.  Batches are gathered on a
 background thread (``prefetch``) and copied to the card from pinned memory
 without blocking.  ``synthetic_mnist`` and ``synthetic_imagenet`` are the
-JAX package's numpy generators, bit for bit.
-
-The JAX producer's fault-injection site (``faults.check("data.producer")``)
-comes with the port of ``faults.py``.
+JAX package's numpy generators, bit for bit.  The producer thread checks
+the ``data.producer`` fault site once a batch (key: the batch index), as
+the reference's does, so an injected fault surfaces in the consumer.
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
-from horovod_tpu_torch import basics
+from horovod_tpu_torch import basics, faults
 from horovod_tpu_torch._device import resolve_device
 from horovod_tpu_torch.utils.tree import leaves, tree_map
 
@@ -157,7 +156,8 @@ class ShardedLoader:
 
         def producer():
             try:
-                for batch in self._batches():
+                for i, batch in enumerate(self._batches()):
+                    faults.check("data.producer", key=i)
                     if not put_or_abandon(batch):
                         return
                 put_or_abandon(end)

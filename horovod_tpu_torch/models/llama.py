@@ -4,7 +4,9 @@ Port of ``horovod_tpu/models/llama.py``: the config, parameter init,
 ``forward`` with per-layer remat, the loss (``loss_fn``, ``make_loss_fn``,
 plain or through the chunked fused cross-entropy) and the KV-cached serving
 path (``prefill``, ``decode_step``, ``decode_chunk``, ``prefill_chunked``,
-sampling, ``generate``).  The JAX
+sampling, ``generate``) with the paged cache of the serving engine
+(``PagedKVCache``, ``BlockPool``, ``decode_chunk_paged``,
+``spec_verify_paged``, ``decode_chunk_paged_row``).  The JAX
 layouts are kept at every public function: activations ``[B, L, H, Dh]``,
 parameters a plain dict of stacked ``[n_layers, ...]`` tensors used as
 ``h @ w`` (``[in, out]``), KV cache ``[n_layers, B, max_len, KVH, Dh]``.
@@ -18,8 +20,8 @@ to ``cfg.dtype`` at each use, exactly as the reference; a server may hold
 them in ``cfg.dtype`` from load (``param_dtype=cfg.dtype``), which gives
 the same values, since the cast at use is then a no-op.
 
-The paged cache and speculative decoding come with the serving-engine
-slice; the sequence-parallel engines (ring, Ulysses) with a later one.
+The sequence-parallel engines (ring, Ulysses) and the tensor-parallel
+partition specs come with later slices.
 """
 
 from __future__ import annotations
@@ -169,13 +171,20 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (x32 * scale).to(x.dtype) * w.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(theta: float, half: int, device: torch.device):
+    """theta^(-i/half) for i < half, made once per device: building the
+    scalar base on a card copies it from the host and waits for the card,
+    which a decode tick must not do."""
+    exponent = -torch.arange(0, half, dtype=torch.float32,
+                             device=device) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
+                     exponent)
+
+
 def rope_tables(cfg: LlamaConfig, positions: torch.Tensor):
     """cos/sin tables for ``positions`` [..., L] → [..., L, head_dim//2]."""
-    half = cfg.head_dim // 2
-    exponent = -torch.arange(0, half, dtype=torch.float32,
-                             device=positions.device) / half
-    freqs = torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                                   device=positions.device), exponent)
+    freqs = _rope_freqs(cfg.rope_theta, cfg.head_dim // 2, positions.device)
     angles = positions[..., None].float() * freqs
     return torch.cos(angles), torch.sin(angles)
 
@@ -580,6 +589,296 @@ def prefill_chunked(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
     if lengths is not None:
         cache = cache._replace(length=basev + true_len)
     return last, cache
+
+
+# ---------------------------------------------------------------------------
+# Block/paged KV cache (vLLM/PagedAttention layout).
+#
+# K/V live in a pool of fixed-size blocks ([n_layers, n_blocks, block_size,
+# KVH, Dh]) and each slot owns a ``block_table`` row mapping its logical
+# positions to physical blocks.  Block 0 is the TRASH block: never
+# allocated, the target of every unallocated table entry, so free and idle
+# rows that tick with the batch scatter their garbage K/V where nothing
+# valid reads it.  The pool, the tables and the lengths are written in
+# place (the reference donates them): a tick never copies the pool.
+# ---------------------------------------------------------------------------
+
+
+class PagedKVCache(NamedTuple):
+    """Paged K/V pool: k/v ``[n_layers, n_blocks, block_size, KVH, Dh]``,
+    ``block_table`` [B, blocks_per_slot] int64 (physical block of each
+    logical block; 0 = trash), ``length`` [B] int64 filled positions.  All
+    four are updated in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    block_table: torch.Tensor
+    length: torch.Tensor
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def logical_len(self) -> int:
+        """Dense attention width each row's table spans (== max_len)."""
+        return self.block_table.shape[1] * self.k.shape[2]
+
+
+def init_paged_cache(cfg: LlamaConfig, n_slots: int, max_len: int, *,
+                     block_size: int, n_blocks: int | None = None,
+                     device: str | torch.device | None = None
+                     ) -> PagedKVCache:
+    """A paged pool for ``n_slots`` rows of logical depth ``max_len``.
+
+    ``n_blocks`` defaults to full backing (every slot can hold max_len)
+    plus the trash block; pass less to overcommit and let the scheduler
+    admission-gate on free blocks."""
+    if max_len % block_size:
+        raise ValueError(
+            f"max_len {max_len} not a multiple of block_size {block_size}")
+    dev = resolve_device(device)
+    per = max_len // block_size
+    if n_blocks is None:
+        n_blocks = n_slots * per + 1          # +1: the trash block
+    if n_blocks < per + 1:
+        raise ValueError(
+            f"n_blocks {n_blocks} cannot back even one full slot "
+            f"({per} blocks) plus the trash block")
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        block_table=torch.zeros((n_slots, per), dtype=torch.int64,
+                                device=dev),
+        length=torch.zeros((n_slots,), dtype=torch.int64, device=dev),
+    )
+
+
+class BlockPool:
+    """Host-side reference-counted allocator over the paged pool's
+    physical blocks.
+
+    Every physical block (1..n_blocks-1; block 0 is trash and never
+    allocated) is in exactly one of three states:
+
+    * **free**: on the free list, content garbage, allocatable;
+    * **referenced**: mapped by >= 1 live rows (``refcount(b)`` users),
+      never reclaimed while any reference remains;
+    * **cached**: zero references but *indexed* by a prefix index
+      (:class:`horovod_tpu_torch.prefix_cache.RadixPrefixCache`), a valid
+      immutable KV chunk kept for reuse, in LRU order, reclaimed by the
+      index's eviction walk before any live row is preempted.
+
+    The pool is policy-free: which cached block to evict is the radix
+    index's call.  Device programs never observe any of it (block tables
+    change data, never shapes).
+    """
+
+    def __init__(self, n_blocks: int):
+        if n_blocks < 2:
+            raise ValueError(
+                f"n_blocks {n_blocks} leaves no allocatable block "
+                f"beyond trash block 0")
+        self.n_blocks = n_blocks
+        # pop() takes low ids first, the classic free-list order
+        self._free = list(range(n_blocks - 1, 0, -1))
+        self._ref: dict[int, int] = {}       # block -> live references
+        self._indexed: set[int] = set()      # owned by a prefix index
+        self._lru: dict[int, None] = {}      # zero-ref indexed, LRU order
+
+    def free_count(self) -> int:
+        return len(self._free)
+
+    def cached_count(self) -> int:
+        return len(self._lru)
+
+    def ref_count(self) -> int:
+        """Blocks currently mapped by at least one live row."""
+        return len(self._ref)
+
+    def refcount(self, block: int) -> int:
+        return self._ref.get(block, 0)
+
+    def alloc(self) -> int:
+        """Take a free block (the caller increfs it when a row maps it).
+        Raises IndexError when the free list is empty."""
+        return self._free.pop()
+
+    def incref(self, block: int) -> int:
+        """One more row maps ``block``; a cached block leaves the LRU."""
+        self._lru.pop(block, None)
+        n = self._ref.get(block, 0) + 1
+        self._ref[block] = n
+        return n
+
+    def decref(self, block: int) -> int:
+        """One row unmapped ``block``.  At zero references an indexed
+        block parks in the LRU cache; an unindexed one is freed."""
+        n = self._ref[block] - 1
+        if n > 0:
+            self._ref[block] = n
+            return n
+        del self._ref[block]
+        if block in self._indexed:
+            self._lru[block] = None          # MRU end
+        else:
+            self._free.append(block)
+        return 0
+
+    def mark_indexed(self, block: int) -> None:
+        """A prefix index now owns ``block``'s content: zero-ref no
+        longer means free, it means cached."""
+        self._indexed.add(block)
+
+    def drop_indexed(self, block: int) -> None:
+        """The index evicted ``block`` (must be zero-ref): back to the
+        free list."""
+        if block in self._ref:
+            raise RuntimeError(
+                f"evicting block {block} with {self._ref[block]} live "
+                f"references")
+        self._indexed.discard(block)
+        self._lru.pop(block, None)
+        self._free.append(block)
+
+    def lru_blocks(self) -> list[int]:
+        """Zero-ref cached blocks, least-recently-used first."""
+        return list(self._lru)
+
+    def state_lines(self) -> list[str]:
+        """Human-readable pool picture for scheduler state dumps."""
+        shared = {b: n for b, n in sorted(self._ref.items()) if n > 1}
+        return [
+            f"block pool: free={len(self._free)} "
+            f"cached_zero_ref={len(self._lru)} "
+            f"referenced={len(self._ref)} "
+            f"of {self.n_blocks - 1} allocatable",
+            f"  lru (old->new)={list(self._lru)} shared_refcounts="
+            f"{shared if shared else '{}'}",
+        ]
+
+
+def _paged_attend(params, tokens, cfg: LlamaConfig, kv_k, kv_v, qpos,
+                  wflat, gflat):
+    """Shared body of the paged decode paths: scatter the chunk's K/V at
+    flat physical positions ``wflat`` [B, T] (in place), gather each row's
+    dense [M] view via ``gflat`` [B, M], and run :func:`decode_chunk`'s
+    mask and :func:`_cached_attention` on it.  M equals the logical depth,
+    so for equal cache values the arithmetic is :func:`decode_chunk`'s on
+    tensors of the same shapes: the logits are bit for bit the dense
+    path's (gathered garbage past a row's frontier is masked to an exact
+    zero softmax term, as dense pad slots are).  Repeated indices in
+    ``wflat`` occur only in the trash block, where any winner is fine."""
+    b, t = tokens.shape
+    _, n_blocks, bs, kvh, dh = kv_k.shape
+    m = gflat.shape[1]
+    x = _embed(params, tokens, cfg)                       # [B, T, D]
+    cos, sin = rope_tables(cfg, qpos)
+    valid = torch.arange(m, device=x.device)[None, None, :] <= qpos[:, :, None]
+    valid = valid[:, None, None, :, :]                    # [B,1,1,T,M]
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        kf = kv_k[i].view(n_blocks * bs, kvh, dh)
+        vf = kv_v[i].view(n_blocks * bs, kvh, dh)
+        kf[wflat] = k
+        vf[wflat] = v
+        o = _cached_attention(cfg, q, kf[gflat], vf[gflat], valid)
+        x = x + o @ lp["wo"].to(cfg.dtype)
+        x = _mlp(cfg, x, lp)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, x, cfg)
+
+
+def _gather_index(table: torch.Tensor, bs: int) -> torch.Tensor:
+    """Flat pool positions of every logical position of each row:
+    [B, per] table → [B, per·bs]."""
+    b, per = table.shape
+    offs = torch.arange(bs, device=table.device)
+    return (table[:, :, None] * bs + offs[None, None, :]).reshape(b, per * bs)
+
+
+def decode_chunk_paged(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+                       pcache: PagedKVCache, *,
+                       advance: torch.Tensor | None = None):
+    """Paged :func:`decode_chunk`: T tokens per row against the block pool;
+    token j of row r lands in the physical block its table maps position
+    ``length_r + j`` to.  Returns (logits [B, T, V] f32, pcache) with the
+    pool and ``length`` updated in place.
+
+    ``advance`` [B]: optional per-row length increments (0 or T), so a
+    fixed-shape serving tick holds idle rows in place: they still compute,
+    their writes land in their own blocks (trash for free rows) and their
+    length stays put.  ``None`` advances every row by T."""
+    b, t = tokens.shape
+    bs = pcache.block_size
+    per = pcache.block_table.shape[1]
+    qpos = pcache.length[:, None] + torch.arange(t, device=tokens.device)
+    # writes past the table (an overflowing row) clamp into its last
+    # logical block: in-bounds garbage, never validly read
+    wblk = torch.gather(pcache.block_table, 1,
+                        torch.clamp(qpos // bs, 0, per - 1))
+    wflat = wblk * bs + qpos % bs                         # [B, T]
+    logits = _paged_attend(params, tokens, cfg, pcache.k, pcache.v, qpos,
+                           wflat, _gather_index(pcache.block_table, bs))
+    pcache.length.add_(t if advance is None else advance)
+    return logits, pcache
+
+
+def spec_verify_paged(params: dict, cfg: LlamaConfig, pcache: PagedKVCache,
+                      last_logits: torch.Tensor, drafts: torch.Tensor,
+                      active: torch.Tensor):
+    """One batched self-speculation verify round over the paged pool: every
+    row argmaxes its last logits into ``tok`` and decodes the
+    ``(K + 1)``-wide chunk ``[tok, d_1..d_K]`` in one
+    :func:`decode_chunk_paged` pass; greedy longest-matching-prefix
+    acceptance is computed on the device (a cumprod of per-position
+    matches).  ``drafts`` [B, K] pads with ``-1``, which argmax
+    predictions never equal (the pad embeds the table's last row, as JAX's
+    negative index does); ``active`` [B] gates the length advance as the
+    plain tick's does.  Rejected positions roll back by the row's length
+    alone (write-before-read).  Every emitted token is the target's own
+    argmax, so outputs equal solo greedy :func:`generate` whatever the
+    drafter proposed.  Returns ``(tok [B], accept [B], next_logits [B, V],
+    pcache)``."""
+    b, k = drafts.shape
+    tok = torch.argmax(last_logits, dim=-1)
+    chunk = torch.cat([tok[:, None], drafts], dim=1)      # [B, K+1]
+    logits, pcache = decode_chunk_paged(params, chunk, cfg, pcache,
+                                        advance=0)
+    preds = torch.argmax(logits, dim=-1)                  # [B, K+1]
+    match = (drafts == preds[:, :k]).to(torch.int64)
+    accept = torch.cumprod(match, dim=1).sum(dim=1)       # [B]
+    pcache.length.add_(active * (1 + accept))
+    next_logits = logits[torch.arange(b, device=logits.device), accept]
+    return tok, accept, next_logits, pcache
+
+
+def decode_chunk_paged_row(params: dict, tokens: torch.Tensor,
+                           cfg: LlamaConfig, pcache: PagedKVCache,
+                           slot: int, *, new_length: int):
+    """One row's T-token chunk against the pool: the chunked-prefill
+    admission program.  ``tokens`` [1, T] continue slot ``slot`` from its
+    current length; the row's length becomes ``new_length`` (the true
+    frontier: for a padded final window less than ``length + T``).  Only
+    this slot's blocks (and trash, for pad overflow) are written."""
+    b, t = tokens.shape
+    if b != 1:
+        raise ValueError(f"decode_chunk_paged_row is a B=1 program, "
+                         f"got batch {b}")
+    bs = pcache.block_size
+    per = pcache.block_table.shape[1]
+    row_table = pcache.block_table[slot:slot + 1]         # [1, per]
+    qpos = (pcache.length[slot]
+            + torch.arange(t, device=tokens.device))[None, :]   # [1, T]
+    wblk = row_table[0][torch.clamp(qpos // bs, 0, per - 1)]
+    wflat = wblk * bs + qpos % bs
+    logits = _paged_attend(params, tokens, cfg, pcache.k, pcache.v, qpos,
+                           wflat, _gather_index(row_table, bs))
+    pcache.length[slot] = new_length
+    return logits, pcache
 
 
 def filtered_logits(logits: torch.Tensor, temperature, *,

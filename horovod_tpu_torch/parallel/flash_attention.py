@@ -45,8 +45,12 @@ from horovod_tpu_torch.parallel.attention import NEG_INF, blockwise_attention
 
 # Kernel launches so far, one counter per kernel: each wrapper adds one per
 # launch and nothing else touches them except callers that reset them to 0
-# to count a run.  ``launches`` counts the forward.
+# to count a run.  ``launches`` counts the forward, and
+# ``fwd_launches_by_dim`` the same launches by head dim (64 or 128), for a
+# path that runs both (a speculative decode whose draft model has heads of
+# 64 and target of 128).
 launches = 0
+fwd_launches_by_dim = {64: 0, 128: 0}
 dq_launches = 0
 dkv_launches = 0
 
@@ -342,6 +346,7 @@ def _flash_forward_cuda(q, k, v, *, n_heads: int, n_kv_heads: int,
     _launch(_LIBRARY[entry], entry, (q, k, v, o, lse), q, n_heads,
             n_kv_heads, causal)
     launches += 1
+    fwd_launches_by_dim[d] += 1
     return o, lse
 
 

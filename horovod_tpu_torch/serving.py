@@ -13,9 +13,9 @@ Port of ``horovod_tpu/serving.py`` (``Request`` through
   positions and masks keeping the rows independent;
 * host-side orchestration only at the boundaries.
 
-The reference counts its compiled programs (``compile_cache_sizes``); the
-port runs eagerly and has no such counter.  ``speculative_generate`` comes
-with the serving-engine slice.
+and :func:`speculative_generate`, greedy draft-and-verify decoding with a
+draft model.  The serving engine with the paged cache, chunked prefill,
+preemption and self-drafting is :mod:`horovod_tpu_torch.serving_scheduler`.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from horovod_tpu_torch.models import llama
@@ -43,9 +44,9 @@ class Request:
     override of the pool temperature (``None`` inherits it).
 
     ``deadline_s``, ``max_queue_steps``, ``slo_s``, ``priority`` and
-    ``trace_ctx`` are the reference's serving-engine lifecycle fields; they
-    are kept for that engine's port and :class:`ContinuousBatcher` ignores
-    them."""
+    ``trace_ctx`` are the lifecycle fields of
+    :class:`~horovod_tpu_torch.serving_scheduler.ServeEngine`;
+    :class:`ContinuousBatcher` ignores them."""
 
     prompt: list[int]
     max_new_tokens: int
@@ -323,3 +324,130 @@ class ContinuousBatcher:
                 results[slot_owner.pop(slot)] = toks
         assert all(r is not None for r in results)
         return results  # type: ignore[return-value]
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding (draft-and-verify), greedy acceptance.
+# ---------------------------------------------------------------------------
+
+
+def _draft_round(dparams: dict, dcfg: llama.LlamaConfig, dcache: KVCache,
+                 first_tok: torch.Tensor, draft_k: int):
+    """``draft_k`` proposals from ``first_tok`` in ``draft_k + 1`` decode
+    steps: the extra step writes the LAST proposal's K/V into the draft
+    cache (a round that accepts every proposal moves the frontier past
+    it, and a hole there would poison later drafts); its own token is
+    never verified and is dropped."""
+    tok, drafts = first_tok, []
+    for _ in range(draft_k + 1):
+        logits, dcache = llama.decode_step(dparams, tok, dcfg, dcache)
+        tok = torch.argmax(logits, dim=-1)
+        drafts.append(tok)
+    return torch.stack(drafts[:draft_k], dim=1), dcache
+
+
+def _verify_round(params: dict, cfg: llama.LlamaConfig, tcache: KVCache,
+                  chunk: torch.Tensor):
+    """The target over the whole ``[cur, d_1..d_k]`` chunk in one pass:
+    logits [B, K+1, V] and the target's greedy token after each prefix."""
+    logits, tcache = llama.decode_chunk(params, chunk, cfg, tcache)
+    return logits, torch.argmax(logits, dim=-1), tcache
+
+
+def speculative_generate(params: dict, cfg: llama.LlamaConfig,
+                         draft_params: dict, draft_cfg: llama.LlamaConfig,
+                         prompt, *, max_new_tokens: int, draft_k: int = 4,
+                         max_len: int | None = None, prompt_lengths=None,
+                         stats: dict | None = None,
+                         timeline: Any = None) -> torch.Tensor:
+    """Greedy speculative decoding: the draft model proposes ``draft_k``
+    tokens a round, the target verifies the ``(draft_k + 1)``-wide chunk
+    ``[cur, d_1..d_k]`` in one :func:`llama.decode_chunk` pass, and the
+    longest matching prefix is accepted (position ``draft_k`` of the
+    verify logits supplies the follow-on token when all are accepted).
+
+    The output equals the target's own greedy ``generate``: the draft
+    changes only how many target passes it takes.  Acceptance is per row,
+    so both caches turn ragged: the [B] ``length`` is the rewind (stale
+    K/V past it is masked and rewritten before any read).  A row that has
+    emitted its budget freezes its length at prompt + max_new_tokens - 1,
+    which keeps every later write of it inside the cache.  Each round
+    reads the device once (current tokens, drafts and predictions
+    together).  Returns [B, max_new_tokens] on the parameters' device.
+
+    ``stats``: optional dict filled with ``rounds``,
+    ``accepted_per_round`` (a [B] int array per round) and
+    ``max_length_seen``.  ``timeline``: optional object with a
+    ``counter(track, name, values)`` method (the reference's
+    ``horovod_tpu.timeline.Timeline`` interface) receiving each round's
+    acceptance.
+    """
+    dev = params["embed"].device
+    prompt = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
+    b, l = prompt.shape
+    max_len = max_len or (l + max_new_tokens + draft_k + 1)
+    if max_len < l + max_new_tokens + draft_k + 1:
+        raise ValueError(
+            f"max_len={max_len} < prompt {l} + max_new_tokens "
+            f"{max_new_tokens} + draft_k {draft_k} + 1 (verification "
+            f"overshoot needs the slack)")
+    lengths = (np.full(b, l, np.int64) if prompt_lengths is None
+               else np.asarray(torch.as_tensor(prompt_lengths).cpu(),
+                               np.int64))
+    lengths_t = torch.as_tensor(lengths, device=dev)
+    tlog, tcache = llama.prefill(params, prompt, cfg,
+                                 llama.init_cache(cfg, b, max_len, device=dev),
+                                 lengths=lengths_t)
+    _, dcache = llama.prefill(draft_params, prompt, draft_cfg,
+                              llama.init_cache(draft_cfg, b, max_len,
+                                               device=dev),
+                              lengths=lengths_t.clone())
+
+    out = np.zeros((b, max_new_tokens), np.int64)
+    emitted = np.zeros(b, np.int64)
+    # a finished row freezes here: its last emitted token's position, so
+    # its later garbage writes stay <= len_cap + draft_k < max_len
+    len_cap = lengths + max_new_tokens - 1
+    if stats is not None:
+        stats["rounds"] = 0
+        stats["accepted_per_round"] = []
+        stats["max_length_seen"] = int(lengths.max())
+
+    def emit(row, tok):
+        if emitted[row] < max_new_tokens:
+            out[row, emitted[row]] = tok
+            emitted[row] += 1
+
+    rows = torch.arange(b, device=dev)
+    while (emitted < max_new_tokens).any():
+        cur = torch.argmax(tlog, dim=-1)                  # [B]
+        drafts, dcache = _draft_round(draft_params, draft_cfg, dcache, cur,
+                                      draft_k)
+        chunk = torch.cat([cur[:, None], drafts], dim=1)  # [B, K+1]
+        logits, preds, tcache = _verify_round(params, cfg, tcache, chunk)
+        host = torch.cat([chunk, preds], dim=1).cpu().numpy()
+        d_host, p_host = host[:, 1:draft_k + 1], host[:, draft_k + 1:]
+        accept = np.zeros(b, np.int64)
+        for r in range(b):
+            emit(r, int(host[r, 0]))
+            a = 0
+            while a < draft_k and d_host[r, a] == p_host[r, a]:
+                emit(r, int(d_host[r, a]))
+                a += 1
+            accept[r] = a
+        # rewind both caches to the accepted frontier (clamped for
+        # finished rows) and seed the next round with the logits that
+        # follow each row's last accepted token
+        lengths = np.minimum(lengths + 1 + accept, len_cap)
+        tcache = tcache._replace(length=torch.as_tensor(lengths, device=dev))
+        dcache = dcache._replace(length=torch.as_tensor(lengths, device=dev))
+        tlog = logits[rows, torch.as_tensor(accept, device=dev)]
+        if stats is not None:
+            stats["rounds"] += 1
+            stats["accepted_per_round"].append(accept.copy())
+            stats["max_length_seen"] = max(stats["max_length_seen"],
+                                           int(lengths.max()))
+        if timeline is not None:
+            timeline.counter("serving.speculative", "ACCEPT",
+                             {"accepted": int(accept.sum()), "rows": b})
+    return torch.as_tensor(out, device=dev)

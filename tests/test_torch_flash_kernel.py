@@ -191,6 +191,20 @@ def test_flash_kernel_d64_matches_reference_on_card(l, causal, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b, l, causal, dtype, heads", [
+    # the draft model's prefill in speculative_generate: Llama-3.2-1B's
+    # 32 query heads over 8 KV heads of 64, four prompts padded to 1024
+    (4, 1024, True, torch.bfloat16, (32, 8, 64)),
+])
+def test_flash_kernel_d64_gqa_prefill_on_card(b, l, causal, dtype, heads):
+    """The Hopper D = 64 forward at a causal GQA shape against its plain
+    version at its 64 × 64 tiles."""
+    _need_card()
+    _check_forward(*_qkv(b, l, dtype, seed=l + b, heads=heads), causal,
+                   block=64, heads=heads)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("l", [65, 196])
