@@ -111,7 +111,29 @@ Phases, one JSON line each; any failure exits non-zero before the result:
     (device ms, launches, wall ms).  Losses finite and falling on every
     route; the ``powersgd`` route's (model, optimizer) checkpoint restores
     bit for bit, PowerSGD's state included.
-13. ``fit mnist`` (BASELINE config 1): ``MnistConvNet`` through ``fit``,
+13. ``train eager`` (run right after ``train vit_b16``): Horovod's engine
+    and PyTorch API (``ops/eager.py``, ``torch_frontend.py``) on NCCL at a
+    world of one.  The module API with the native controller on (built
+    from ``native/src`` with ``g++`` beside the kernels, ``local:``
+    transport): every async collective (allreduce Sum/Average/Min/Max/
+    Product, fp16/bf16, grouped, allgather, broadcast, alltoall,
+    reducescatter, sparse, the frontend's in-place allreduce) equal bit for
+    bit to the synchronous API's on 16 MiB inputs, ``poll`` turning true
+    first, ``barrier`` and ``join``; the timeline (``HOROVOD_TIMELINE``)
+    parsed back with the engine's phases; an autotune window and its log
+    row.  Then ResNet-101 and ViT-B/16 (as phases 9-10) under the
+    hook-driven ``torch_frontend.DistributedOptimizer`` and the synchronous
+    one: from the same weights the parameters after one step are equal
+    bit for bit (cuDNN held to deterministic algorithms, a second
+    synchronous step as the control); then off, sync, hook, hook, sync,
+    off runs of 2 warm-up, 8 timed and 1 profiled steps (images/s,
+    kernels, busy ms, idle share, the engine's buckets a step; ``off`` is
+    the synchronous route with the engine shut down, ``sync`` with it
+    alive), ViT's launching each D = 64 kernel 12 times a step; last, each
+    route's host time split into forward, backward (with the hooks),
+    synchronize, step and the wait for the card, with the hooks', the
+    engine enqueue's and the cycle thread's flushes' own time.
+14. ``fit mnist`` (BASELINE config 1): ``MnistConvNet`` through ``fit``,
     ``ShardedLoader`` over ``synthetic_mnist`` and the broadcast,
     metric-average, warm-up and checkpoint callbacks, two epochs; the loss
     must fall, a checkpoint lands per epoch under ``$TMPDIR``,
@@ -310,14 +332,16 @@ def phase_build() -> None:
     from horovod_tpu_torch import _build
 
     t0 = time.perf_counter()
+    controller = _build.start_controller_build()    # g++ beside the nvccs
     _build.build_all()
+    controller = _build.build_controller(controller)
     seconds = time.perf_counter() - t0
     ptxas = [ln.strip() for log in _build.build_logs.values()
              for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln
              or _ptxas_warning(ln)]
     emit("build", ok=True, seconds=seconds, sources=_build.sources(),
-         ptxas=ptxas)
+         controller=controller.name, ptxas=ptxas)
     return {"seconds": seconds, "kernels": _ptxas_kernels(ptxas)}
 
 
@@ -2320,6 +2344,388 @@ def phase_fit_mnist(seed: int) -> dict:
     return out
 
 
+# -- train eager: Horovod's engine and its PyTorch API ----------------------
+
+EAGER_ELEMS = 1 << 22          # module API tensors: 16 MiB of f32 each
+EAGER_TIMEOUT_S = 30.0
+
+
+@contextlib.contextmanager
+def _env(values: dict):
+    """Set environment variables for the ``basics.init`` inside (the engine
+    reads its knobs there), and put the old values back after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _eager_module_api(seed: int, log_path: str) -> dict:
+    """Every collective of the module API and the frontend, async, held
+    bit for bit against the synchronous API on the same inputs (a world of
+    one: the input itself); ``poll`` must turn true before ``synchronize``;
+    then grouped allreduces until the autotuner closes a window and logs
+    its row."""
+    import torch
+
+    from horovod_tpu_torch import torch_frontend as F
+    from horovod_tpu_torch.ops import collective_ops as C
+    from horovod_tpu_torch.ops import eager as E
+    from horovod_tpu_torch.ops.compression import Compression
+    from horovod_tpu_torch.optim.distributed_optimizer import (
+        allreduce_gradients)
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn(EAGER_ELEMS, device=DEV, generator=g)
+    ys = [torch.randn(n, device=DEV, generator=g)
+          for n in (4096, 1 << 20, 3 * 7 * 11)]
+    checks, polls = {}, {}
+
+    def polled(name, h):
+        t0 = time.perf_counter()
+        while not E.poll(h):
+            if time.perf_counter() - t0 > EAGER_TIMEOUT_S:
+                raise PhaseError(f"train eager: poll({name}) never turned "
+                                 "true")
+            time.sleep(1e-4)
+        polls[name] = time.perf_counter() - t0
+        return E.synchronize(h)
+
+    for op in ("Sum", "Average", "Min", "Max", "Product"):
+        got = polled(f"allreduce_{op}", E.allreduce_async(
+            x, name=f"api.{op}", op=getattr(C, op)))
+        checks[f"allreduce_{op}"] = torch.equal(
+            got, C.allreduce(x, op=getattr(C, op)))
+    for comp in ("fp16", "bf16"):
+        c = getattr(Compression, comp)
+        got = polled(f"allreduce_{comp}", E.allreduce_async(
+            x, average=True, name=f"api.{comp}", compression=c))
+        checks[f"allreduce_{comp}"] = torch.equal(
+            got, C.allreduce(x, average=True, compression=c))
+    grouped = E.grouped_allreduce_eager([x, *ys], average=True)
+    sync = C.grouped_allreduce([x, *ys], average=True)
+    checks["grouped_allreduce"] = all(map(torch.equal, grouped, sync))
+    rows = x.reshape(1024, -1)
+    checks["allgather"] = torch.equal(
+        polled("allgather", E.allgather_async(rows, "api.gather")),
+        C.allgather(rows))
+    checks["broadcast"] = torch.equal(
+        polled("broadcast", E.broadcast_async(rows, 0, "api.bcast")),
+        C.broadcast(rows, 0))
+    checks["alltoall"] = torch.equal(
+        polled("alltoall", E.alltoall_async(rows, [1024], "api.a2a")),
+        C.alltoall(rows))
+    checks["reducescatter"] = torch.equal(
+        polled("reducescatter", E.reducescatter_async(rows, "api.rs")),
+        C.reducescatter(rows, op=C.Average))
+    topk = Compression.topk(ratio=0.01)
+    checks["sparse_allreduce"] = torch.equal(
+        polled("sparse", E.sparse_allreduce_async(x, "api.sparse",
+                                                  ratio=0.01)),
+        topk.sparse_allreduce(x))
+    grads = [y.clone() for y in ys]
+    allreduce_gradients(grads)
+    inplace = [y.clone() for y in ys]
+    hs = [F.allreduce_async_(t, name=f"api.inplace.{i}")
+          for i, t in enumerate(inplace)]
+    checks["frontend_inplace"] = all(
+        F.synchronize(h) is t and torch.equal(t, r)
+        for h, t, r in zip(hs, inplace, grads))
+    F.barrier()
+    checks["join"] = F.join() == 0
+    eng = E._engine()
+    checks["native_controller_on"] = eng.controller is not None
+    checks["poll_turned_true"] = len(polls) == 12
+    # Autotune: windows of 2 flushes after 1 warm-up flush; each flush
+    # here is one grouped call of 32 MiB.
+    rounds = 0
+    while (rounds < 200 and eng.autotuner is not None
+           and len(open(log_path).read().splitlines()) < 2):
+        E.grouped_allreduce_eager([x, x.flip(0)], average=True)
+        rounds += 1
+    rows_logged = open(log_path).read().splitlines()
+    checks["autotune_logged"] = len(rows_logged) >= 2
+    return {"checks": checks, "poll_s": polls,
+            "autotune": {"rounds": rounds, "log": rows_logged[:4],
+                         "threshold": eng.config.fusion_threshold_bytes,
+                         "cycle_ms": eng.config.cycle_time_ms},
+            "stats": {k: v for k, v in E.engine_stats().items()
+                      if k != "recent_negotiate_s"}}
+
+
+def _timeline_check(path: str) -> dict:
+    """The timeline the module API wrote: strict JSON, a track per tensor,
+    the engine's phases on an allreduce's track."""
+    with open(path) as f:
+        events = json.load(f)
+    pids = {e["pid"]: e["args"]["name"] for e in events
+            if e.get("name") == "process_name"}
+    phases = sorted({(e["name"], e["ph"]) for e in events
+                     if pids.get(e["pid"]) == "api.Sum"})
+    want = {("NEGOTIATE_ALLREDUCE", "B"), ("NEGOTIATE_ALLREDUCE", "E"),
+            ("NEGOTIATE_TICK_r0", "i"), ("ALLREDUCE", "B"),
+            ("ALLREDUCE", "E"), ("DISPATCH", "B"), ("DISPATCH", "E"),
+            ("WAIT_FOR_OUTPUT", "b"), ("WAIT_FOR_OUTPUT", "e")}
+    return {"events": len(events), "tensors": len(pids),
+            "api.Sum": [list(p) for p in phases],
+            "ok": want <= set(phases) and events[-1]["name"] == "done"}
+
+
+def _host_split(model, batch, opt, steps: int = 4) -> dict:
+    """Where one step's host time goes, by ``time.perf_counter`` around its
+    parts: forward, ``backward`` (autograd, and on the hook route the
+    hooks), ``synchronize``, ``step``, then the wait for the card; and, on
+    the hook route, the hooks' own time (``EagerDistributedOptimizer.
+    _enqueue``), the engine's enqueue inside it, and the cycle thread's
+    flushes.  Medians over ``steps`` steps after one warm-up step."""
+    import threading
+
+    from horovod_tpu_torch.ops import eager as E
+    from horovod_tpu_torch.optim import eager_optimizer as EO
+
+    spent: dict[str, float] = {}
+
+    def timed(cls, attr, key):
+        inner = getattr(cls, attr)
+
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner(*a, **kw)
+            finally:
+                k = key(a) if callable(key) else key
+                spent[k] = spent.get(k, 0.0) + time.perf_counter() - t0
+                spent[k + "_calls"] = spent.get(k + "_calls", 0) + 1
+        setattr(cls, attr, wrapper)
+        return inner
+
+    def flush_key(a):
+        cycle = threading.current_thread().name.endswith("-engine")
+        empty = not a[0]._queue
+        return ("cycle_flush" if cycle else "caller_flush") + (
+            "_empty" if empty else "")
+
+    saved = [(E.EagerEngine, "flush",
+              timed(E.EagerEngine, "flush", flush_key)),
+             (E.EagerEngine, "enqueue_many",
+              timed(E.EagerEngine, "enqueue_many", "engine_enqueue")),
+             (EO.EagerDistributedOptimizer, "_enqueue",
+              timed(EO.EagerDistributedOptimizer, "_enqueue", "hook"))]
+    rows = []
+    try:
+        for i in range(steps + 1):
+            spent.clear()
+            t0 = time.perf_counter()
+            loss = _cross_entropy(model, batch)
+            t1 = time.perf_counter()
+            loss.backward()
+            t2 = time.perf_counter()
+            opt.synchronize()
+            t3 = time.perf_counter()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            t4 = time.perf_counter()
+            sync()
+            t5 = time.perf_counter()
+            if i:
+                rows.append({"forward_ms": (t1 - t0) * 1e3,
+                             "backward_ms": (t2 - t1) * 1e3,
+                             "synchronize_ms": (t3 - t2) * 1e3,
+                             "step_ms": (t4 - t3) * 1e3,
+                             "card_wait_ms": (t5 - t4) * 1e3,
+                             **{k: (v if k.endswith("_calls") else v * 1e3)
+                                for k, v in spent.items()}})
+    finally:
+        for cls, attr, inner in saved:
+            setattr(cls, attr, inner)
+    keys = sorted({k for r in rows for k in r})
+    return {k: statistics.median(r.get(k, 0.0) for r in rows) for k in keys}
+
+
+def _eager_route(name, make_model, make_opt, batch, routes, want=None):
+    """One model under both gradient routes from the same weights: the
+    parameters after one step must be equal bit for bit (cuDNN restricted
+    to deterministic algorithms for those steps, and a second synchronous
+    step as the control), then the timed runs in turns, each 2 warm-up, 8
+    timed and 1 profiled steps (``_run_steps``).  Route ``off`` is the
+    synchronous one with the engine shut down (``sync`` runs with it
+    alive).  Last, each route's host time split by part (``_host_split``)."""
+    import torch
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch import torch_frontend as F
+    from horovod_tpu_torch.ops import eager as E
+    from horovod_tpu_torch.optim.distributed_optimizer import (
+        DistributedOptimizer, make_train_step)
+
+    model = make_model()
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def wrap(route, opt):
+        if route == "hook":
+            return F.DistributedOptimizer(opt, model.named_parameters())
+        return DistributedOptimizer(opt)
+
+    def one_step(route):
+        model.load_state_dict(start)
+        opt = wrap(route, make_opt(model))
+        make_train_step(_cross_entropy, opt)(model, batch)
+        if route == "hook":
+            opt.remove_hooks()
+        sync()
+        return {k: v.clone() for k, v in model.state_dict().items()}
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        after = {"sync": one_step("sync"), "hook": one_step("hook"),
+                 "control": one_step("sync")}
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+    def equal(a, b):
+        return all(torch.equal(a[k], b[k]) for k in a)
+
+    checks = {"hook_equals_sync_bit_for_bit": equal(after["hook"],
+                                                    after["sync"]),
+              "sync_step_deterministic": equal(after["control"],
+                                               after["sync"])}
+    del after
+    runs = []
+    for route in routes:
+        if route == "off":
+            basics.shutdown()
+            basics.init()
+        else:
+            E._engine()         # alive, as after any eager call
+        opt = wrap(route, make_opt(model))
+        step = make_train_step(_cross_entropy, opt)
+        before = dict(E.engine_stats())
+        run = _run_steps(step, model, batch, 2, 8, True)
+        if route == "hook":
+            opt.remove_hooks()
+            stats = E.engine_stats()
+            n = len(run["losses"])
+            run["engine_per_step"] = {
+                k: (stats[k] - before.get(k, 0)) / n
+                for k in ("batches_dispatched", "tensors_fused",
+                          "allreduce_bytes")}
+        if want is not None and not all(p == want for p in run["launches"]):
+            raise PhaseError(f"train eager {name} ({route}): launches per "
+                             f"step {run['launches']}, want {want}")
+        run["launches"] = {k: sum(p[k] for p in run["launches"])
+                           for k in run["launches"][0]}
+        prof = run.pop("profiled_step")
+        runs.append({"route": route, **run,
+                     "kernels": prof["kernels"],
+                     "device_busy_ms": prof["device_busy_ms"],
+                     "wall_ms": prof["wall_ms"],
+                     "device_idle_share": prof["device_idle_share"],
+                     "ms_by_kind": prof["ms_by_kind"]})
+    host = {}
+    E._engine()
+    for route in ("sync", "hook"):
+        opt = wrap(route, make_opt(model))
+        host[route] = _host_split(model, batch, opt)
+        if route == "hook":
+            opt.remove_hooks()
+    by_route = {}
+    for route in ("off", "sync", "hook"):
+        rs = [r for r in runs if r["route"] == route]
+        by_route[route] = {}
+        for key in ("images_per_s", "kernels", "device_busy_ms",
+                    "device_idle_share"):
+            got = [r[key] for r in rs if r[key] is not None]
+            by_route[route][key] = statistics.median(got) if got else None
+    checks["finite"] = all(math.isfinite(v) for r in runs
+                           for v in r["losses"])
+    for r in runs:
+        r.pop("step_seconds")
+    return {"checks": checks, "runs": runs, "by_route": by_route,
+            "host_split": host,
+            "params": sum(p.numel() for p in model.parameters()),
+            "param_tensors": sum(1 for _ in model.parameters())}
+
+
+def phase_train_eager(seed: int) -> dict:
+    """Horovod's engine and PyTorch API (``ops/eager.py``,
+    ``torch_frontend.py``) on NCCL at a world of one: the module API with
+    the native controller on (``local:`` transport), a timeline written
+    and parsed back, an autotune window and its log row; then ResNet-101
+    (SGD, momentum 0.9) and ViT-B/16 (AdamW, flash) at batch 64 under the
+    hook-driven ``DistributedOptimizer`` and the synchronous one in turns
+    (off, sync, hook, hook, sync, off; ``off``: the synchronous route with
+    the engine shut down), from the same weights first, where the
+    parameters after one step must be equal bit for bit."""
+    import tempfile
+
+    import torch
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.models.resnet import ResNet101
+    from horovod_tpu_torch.models.vit import ViT_B16
+
+    tmp = tempfile.mkdtemp(prefix="hvd_eager_")
+    timeline = os.path.join(tmp, "timeline.json")
+    tune_log = os.path.join(tmp, "autotune.csv")
+    basics.shutdown()
+    with _env({"HVD_TORCH_NATIVE_CONTROLLER": "on",
+               "HVD_TORCH_CONTROLLER_TRANSPORT": "local:chip_smoke",
+               "HOROVOD_TIMELINE": timeline, "HOROVOD_AUTOTUNE": "1",
+               "HOROVOD_AUTOTUNE_LOG": tune_log,
+               "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
+               "HOROVOD_AUTOTUNE_STEADY_STATE_SAMPLES": "2"}):
+        basics.init()
+    try:
+        api = _eager_module_api(seed, tune_log)
+    finally:
+        basics.shutdown()           # closes the timeline
+    api["timeline"] = _timeline_check(timeline)
+    basics.init()                   # the user's default: no controller at 1
+    torch.backends.cudnn.benchmark = True
+    routes = ("off", "sync", "hook", "hook", "sync", "off")
+    resnet = _eager_route(
+        "resnet101",
+        lambda: ResNet101(dtype=torch.bfloat16, device=DEV, seed=seed),
+        lambda m: torch.optim.SGD(m.parameters(), lr=0.01, momentum=0.9),
+        _vision_batch(seed + 5, 224), routes)
+    torch.cuda.empty_cache()
+    vit_want = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+    vit = _eager_route(
+        "vit_b16",
+        lambda: ViT_B16(dtype=torch.bfloat16, attn_impl="flash", device=DEV,
+                        seed=seed),
+        lambda m: torch.optim.AdamW(m.parameters(), lr=1e-3,
+                                    weight_decay=1e-4, fused=True),
+        _vision_batch(seed + 6, 224), routes, want=vit_want)
+    basics.shutdown()               # later phases start without the engine
+    basics.init()
+    torch.cuda.empty_cache()
+    out = {"world_size": basics.size(), "batch": VISION_BATCH,
+           "module_api": api, "resnet101": resnet, "vit_b16": vit,
+           "vit_launches_total": {
+               k: sum(r["launches"][k] for r in vit["runs"])
+               for k in vit_want},
+           "checks": {**{f"api.{k}": v for k, v in api["checks"].items()},
+                      "timeline": api["timeline"]["ok"],
+                      **{f"resnet101.{k}": v
+                         for k, v in resnet["checks"].items()},
+                      **{f"vit_b16.{k}": v
+                         for k, v in vit["checks"].items()}}}
+    out["ok"] = all(out["checks"].values())
+    emit("train eager", **out)
+    if not out["ok"]:
+        raise PhaseError("train eager failed its checks: "
+                         f"{[k for k, v in out['checks'].items() if not v]}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-layers", type=int, default=32,
@@ -2382,6 +2788,8 @@ def main(argv=None) -> int:
         phase_resnet101(args.seed)
         phase = "train vit_b16"
         vit = phase_vit_b16(args.seed, tuple(args.vit_ab))
+        phase = "train eager"
+        eager = phase_train_eager(args.seed)
         phase = "train vgg16"
         phase_vgg16(args.seed)
         phase = "train inception_v3"
@@ -2400,7 +2808,8 @@ def main(argv=None) -> int:
 
         basics.shutdown()
     print(json.dumps({"kernels": _kernel_rows(build, kern, kern_bwd, gen, bat,
-                                              spec, train, kern64, vit)}),
+                                              spec, train, kern64, vit,
+                                              eager)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
@@ -2420,10 +2829,11 @@ def _ptx(build, kernel: str) -> dict:
 
 
 def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
-                 vit) -> list[dict]:
+                 vit, eager) -> list[dict]:
     """One row per kernel and head dim: its launches on the main paths
     (D = 128: serving's generate and batcher, the Llama train steps; D =
-    64: the ViT-B/16 train steps), its largest error over the bf16 cases
+    64: the ViT-B/16 train steps, synchronous and under the hook-driven
+    optimizer of ``train eager``), its largest error over the bf16 cases
     and its times at its main shape (the generate prefill for the forward,
     the Llama training shape for the backward pair, the ViT-B/16 shape at
     D = 64).  ``ms`` is device time; ``prev_ms`` the earlier mma.sync kernel
@@ -2506,6 +2916,8 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
             "replaces": f"{src}:{line}",
             "head_dim": 64, "shape": VIT_SHAPE[0],
             "launches": (vit["launches_total"][name.removesuffix("_d64")]
+                         + eager["vit_launches_total"][
+                             name.removesuffix("_d64")]
                          + (spec["launches"][64] if grads == ("o",) else 0)),
             "max_abs_err": max(c[f"{g}_max_abs_err"] for c in cases
                                for g in grads if c["dtype"] == "bf16"),

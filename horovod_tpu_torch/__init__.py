@@ -22,10 +22,19 @@ wire cast (fp16, bf16), quantized (int8, int4), top-k sparse, compressed
 with state (``PowerSGDCompressor``, ``ErrorFeedback``) or combined by
 Adasum, over the world or a ``ProcessSet``; ``fit`` checkpoints through
 ``ModelCheckpointCallback`` and resumes through ``restore_checkpoint``.
+
+Horovod's own engine is here too (``ops/eager.py``): async handles
+(``allreduce_async`` ... ``poll``, ``synchronize``), a background fusion
+cycle, negotiation through the repo's native controller, the timeline and
+autotune; ``EagerDistributedOptimizer`` and
+``torch_frontend.DistributedOptimizer`` reduce gradients from backward
+hooks.  ``DistributedOptimizer`` here stays the synchronous one, as
+``horovod_tpu.DistributedOptimizer`` is the compiled one.
 """
 
 from horovod_tpu_torch._device import resolve_device
-from horovod_tpu_torch.basics import (NotInitializedError, init,
+from horovod_tpu_torch.basics import (HorovodInternalError,
+                                      NotInitializedError, init,
                                       is_initialized, local_rank, local_size,
                                       rank, shutdown, size)
 from horovod_tpu_torch.ops.collective_ops import (Adasum, Average, Max, Min,
@@ -35,6 +44,15 @@ from horovod_tpu_torch.ops.collective_ops import (Adasum, Average, Max, Min,
                                                   broadcast, grouped_allreduce,
                                                   reducescatter)
 from horovod_tpu_torch.ops.compression import Compression
+from horovod_tpu_torch.ops.eager import (allgather_async, allreduce_async,
+                                         alltoall_async, broadcast_async,
+                                         engine_stats,
+                                         grouped_allreduce_eager, join, poll,
+                                         reducescatter_async, release,
+                                         sparse_allreduce,
+                                         sparse_allreduce_async, synchronize)
+from horovod_tpu_torch.optim.eager_optimizer import EagerDistributedOptimizer
+from horovod_tpu_torch.timeline import start_timeline, stop_timeline
 from horovod_tpu_torch.ops.powersgd import ErrorFeedback, PowerSGDCompressor
 from horovod_tpu_torch.optim.distributed_optimizer import (
     DistributedOptimizer, TrainStepResult, allgather_object,
@@ -52,11 +70,17 @@ from horovod_tpu_torch.checkpoint import (latest_checkpoint, list_checkpoints,
 from horovod_tpu_torch.training import fit, make_eval_step
 
 __all__ = [
-    "resolve_device", "NotInitializedError", "init", "is_initialized",
+    "resolve_device", "HorovodInternalError", "NotInitializedError", "init",
+    "is_initialized",
     "local_rank", "local_size", "rank", "shutdown", "size",
     "Adasum", "Average", "Max", "Min", "ProcessSet", "Product", "Sum",
     "allgather", "allreduce", "alltoall", "barrier", "broadcast",
-    "grouped_allreduce", "reducescatter", "Compression", "ErrorFeedback",
+    "grouped_allreduce", "reducescatter", "Compression", "allgather_async",
+    "allreduce_async", "alltoall_async", "broadcast_async", "engine_stats",
+    "grouped_allreduce_eager", "join", "poll", "reducescatter_async",
+    "release", "sparse_allreduce", "sparse_allreduce_async", "synchronize",
+    "EagerDistributedOptimizer", "start_timeline", "stop_timeline",
+    "ErrorFeedback",
     "PowerSGDCompressor", "DistributedOptimizer", "TrainStepResult",
     "allgather_object", "allreduce_gradients", "broadcast_object",
     "broadcast_optimizer_state", "broadcast_parameters", "make_train_step",

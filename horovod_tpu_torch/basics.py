@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
+from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -36,6 +38,11 @@ class NotInitializedError(RuntimeError):
     """Raised when the API is used before ``init()``."""
 
 
+class HorovodInternalError(RuntimeError):
+    """The eager engine or its control plane failed (not a caller's
+    mistake): outstanding handles fail with it instead of hanging."""
+
+
 @dataclasses.dataclass
 class _State:
     initialized: bool = False
@@ -45,6 +52,11 @@ class _State:
     local_size: int = 1
     config: EngineConfig | None = None
     generation: int = 0         # bumped by every init(): keys cached groups
+    # The eager engine (ops/eager.py), made at the first eager op, and the
+    # timeline it writes; both guarded by ``lock``.
+    engine: Any = None
+    timeline: Any = None
+    lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 
 _state = _State()
@@ -85,7 +97,9 @@ def _launch_env() -> dict | None:
 def init(device: str | torch.device | None = None) -> None:
     """Start the process group.  ``device``: ``None`` means the card (this
     process's GPU, ``local_rank``), ``"cpu"`` the gloo CPU world.
-    Idempotent."""
+    Idempotent.  The eager engine is not started here but at the first
+    eager op (the reference starts its thread in
+    ``InitializeHorovodOnce``, operations.cc:2011-2029)."""
     if _state.initialized:
         return
     dev = resolve_device(device)
@@ -115,15 +129,27 @@ def init(device: str | torch.device | None = None) -> None:
 
 
 def shutdown() -> None:
-    """Tear the process group down (if ``init`` started it).  Idempotent."""
+    """Shut down in the JAX package's order: the eager engine drains its
+    queue, stops its cycle and stall threads and closes the native
+    controller; the timeline is closed; then the process group is torn
+    down (if ``init`` started it).  Idempotent."""
     if not _state.initialized:
         return
-    if _state.owns_group and dist.is_initialized():
-        dist.destroy_process_group()
-    _state.initialized = False
-    _state.owns_group = False
-    _state.device = None
-    _state.config = None
+    with _state.lock:
+        engine, _state.engine = _state.engine, None
+        timeline, _state.timeline = _state.timeline, None
+    try:
+        if engine is not None:
+            engine.shutdown()
+    finally:
+        if timeline is not None:
+            timeline.close()
+        if _state.owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+        _state.initialized = False
+        _state.owns_group = False
+        _state.device = None
+        _state.config = None
 
 
 def is_initialized() -> bool:

@@ -129,8 +129,9 @@ def _adasum_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ca * a + cb * b
 
 
-def adasum_allreduce(tensor: torch.Tensor) -> torch.Tensor:
-    """Adasum reduction over the world (Horovod ≥ 0.20).
+def adasum_allreduce(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """Adasum reduction over the world (Horovod ≥ 0.20); ``group`` is a
+    group of the whole world (None: the default one).
 
     A power-of-two world runs the butterfly: log₂ n rounds, rank r
     exchanging with r ^ 2ⁱ (``batch_isend_irecv``).  Other worlds gather
@@ -154,12 +155,12 @@ def adasum_allreduce(tensor: torch.Tensor) -> torch.Tensor:
             send = v.to(wire_dtype).contiguous()
             recv = torch.empty_like(send)
             for req in dist.batch_isend_irecv([
-                    dist.P2POp(dist.isend, send, partner),
-                    dist.P2POp(dist.irecv, recv, partner)]):
+                    dist.P2POp(dist.isend, send, partner, group),
+                    dist.P2POp(dist.irecv, recv, partner, group)]):
                 req.wait()
             v = _adasum_pair(send.to(torch.float32), recv.to(torch.float32))
     else:
-        vs = _all_gather(v.to(wire_dtype))               # [n, d]
+        vs = _all_gather(v.to(wire_dtype), group)          # [n, d]
         level = [vs[i].to(torch.float32) for i in range(n)]
         while len(level) > 1:
             nxt = [_adasum_pair(level[2 * j], level[2 * j + 1])
@@ -171,36 +172,41 @@ def adasum_allreduce(tensor: torch.Tensor) -> torch.Tensor:
     return v.reshape(tensor.shape).to(orig_dtype)
 
 
-def _process_set_allreduce(tensor: torch.Tensor, ps: ProcessSet,
-                           op: _ReduceOp, compression: Compressor
-                           ) -> torch.Tensor:
-    """Members reduce together; non-members get their input back (through
-    the compressor's cast, as the JAX package's singleton groups do)."""
-    if op not in (Sum, Average, Min, Max):
-        raise ValueError(f"process_set supports Sum/Average/Min/Max, not {op}")
-    g = ps.group()
-    compressed, ctx = compression.compress(tensor.clone())
-    if ps.is_member():
-        dist.all_reduce(compressed, op=_TORCH_OP[op], group=g)
-        if op is Average:
-            compressed = compressed / ps.size()
-    return compression.decompress(compressed, ctx)
+def _reduce_start(buf: torch.Tensor, op: _ReduceOp, compression: Compressor,
+                  process_set: ProcessSet | None = None, group=None):
+    """Start the all-reduce of ``buf`` (which it may overwrite), in the JAX
+    package's order: process set, Min/Max/Product (the tensor as it is),
+    Adasum, a wire-format compressor, the cast path.  ``group``: the group
+    it runs over (None: the default group, or the process set's own).
 
-
-def _reduce_flat(buf: torch.Tensor, op: _ReduceOp, compression: Compressor,
-                 process_set: ProcessSet | None = None) -> torch.Tensor:
-    """All-reduce ``buf`` (which may be overwritten) and return the result,
-    in the JAX package's order: process set, Min/Max/Product (the tensor
-    as it is), Adasum, a wire-format compressor, the cast path."""
+    Returns ``(work, finish)``: the collective's ``Work`` (None where the
+    route ran to its end here) and ``finish()``, which gives the result
+    once ``work`` has been waited on.  With a process set, members reduce
+    together and non-members get their input back, through the
+    compressor's cast as the JAX package's singleton groups do."""
     if process_set is not None:
         if op is Adasum or _is_quantized(compression):
             raise ValueError(
                 "process_set does not compose with Adasum or wire-format "
                 "compressors; use Sum/Average/Min/Max with none/fp16/bf16")
-        return _process_set_allreduce(buf, process_set, op, compression)
+        if op not in (Sum, Average, Min, Max):
+            raise ValueError(
+                f"process_set supports Sum/Average/Min/Max, not {op}")
+        if group is None:
+            group = process_set.group()
+        wire, ctx = compression.compress(buf)
+        if not process_set.is_member():
+            return None, lambda: compression.decompress(wire, ctx)
+        work = dist.all_reduce(wire, op=_TORCH_OP[op], group=group,
+                               async_op=True)
+
+        def finish_set():
+            out = wire / process_set.size() if op is Average else wire
+            return compression.decompress(out, ctx)
+        return work, finish_set
     if op in (Min, Max, Product):
-        dist.all_reduce(buf, op=_TORCH_OP[op])
-        return buf
+        return (dist.all_reduce(buf, op=_TORCH_OP[op], group=group,
+                                async_op=True), lambda: buf)
     if op is Adasum:
         if _is_quantized(compression):
             raise ValueError(
@@ -209,15 +215,34 @@ def _reduce_flat(buf: torch.Tensor, op: _ReduceOp, compression: Compressor,
                 "Use Compression.fp16/bf16 — Adasum then moves 16-bit "
                 "words on the wire.")
         wire, ctx = compression.compress(buf)
-        return compression.decompress(adasum_allreduce(wire), ctx)
+        out = compression.decompress(adasum_allreduce(wire, group), ctx)
+        return None, lambda: out
     if _is_quantized(compression):
-        return compression.quantized_allreduce(buf, average=op is Average)
+        out = compression.quantized_allreduce(buf, average=op is Average,
+                                              group=group)
+        return None, lambda: out
     wire, ctx = compression.compress(buf)
-    dist.all_reduce(wire, op=dist.ReduceOp.SUM)
-    if op is Average:
-        n = basics.size()
-        wire = wire.div_(n) if wire.is_floating_point() else wire / n
-    return compression.decompress(wire, ctx)
+    work = dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=group,
+                           async_op=True)
+
+    def finish():
+        out = wire
+        if op is Average:
+            n = dist.get_world_size(group)
+            out = out.div_(n) if out.is_floating_point() else out / n
+        return compression.decompress(out, ctx)
+    return work, finish
+
+
+def _reduce_flat(buf: torch.Tensor, op: _ReduceOp, compression: Compressor,
+                 process_set: ProcessSet | None = None) -> torch.Tensor:
+    """All-reduce ``buf`` (which may be overwritten) over the default group
+    (or the process set's) and return the result: :func:`_reduce_start`,
+    waited on."""
+    work, finish = _reduce_start(buf, op, compression, process_set)
+    if work is not None:
+        work.wait()
+    return finish()
 
 
 def allreduce(

@@ -12,7 +12,8 @@ The top-k and quantized compressors change the collective itself, so their
 ``compress``/``decompress`` raise; :func:`.collective_ops.allreduce`
 dispatches to ``quantized_allreduce`` and
 :func:`..optim.distributed_optimizer.allreduce_gradients` to
-``sparse_allreduce``.  Every collective here runs on the default group,
+``sparse_allreduce``.  Every collective here runs on the default group
+(or on the group of the whole world a caller passes: the eager engine's),
 one NCCL (CUDA) or gloo (CPU) call each.
 """
 
@@ -79,12 +80,13 @@ class BF16Compressor(_CastCompressor):
     wire_dtype = torch.bfloat16
 
 
-def _all_gather(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` stacked in rank order: ``[world, *x.shape]``."""
-    n = dist.get_world_size()
+def _all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``x`` stacked in rank order: ``[world, *x.shape]``
+    (``group``: a group of the whole world, None the default one)."""
+    n = dist.get_world_size(group)
     flat = x.contiguous().reshape(-1)
     out = torch.empty(n * flat.numel(), dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, flat)
+    dist.all_gather_into_tensor(out, flat, group=group)
     return out.view((n,) + tuple(x.shape))
 
 
@@ -118,15 +120,15 @@ class TopKCompressor:
         """Indices of the k entries of largest magnitude of a 1-D tensor."""
         return torch.topk(flat.abs(), self._k_for(flat.numel())).indices
 
-    def sparse_allreduce(self, tensor: torch.Tensor, *, average: bool = False
-                         ) -> torch.Tensor:
+    def sparse_allreduce(self, tensor: torch.Tensor, *, average: bool = False,
+                         group=None) -> torch.Tensor:
         flat = tensor.reshape(-1)
         idxs = self.select(flat)
-        all_vals = _all_gather(flat[idxs]).reshape(-1)   # [size*k]
-        all_idxs = _all_gather(idxs).reshape(-1)         # [size*k]
+        all_vals = _all_gather(flat[idxs], group).reshape(-1)   # [size*k]
+        all_idxs = _all_gather(idxs, group).reshape(-1)         # [size*k]
         dense = torch.zeros_like(flat).index_add_(0, all_idxs, all_vals)
         if average:
-            dense = dense / dist.get_world_size()
+            dense = dense / dist.get_world_size(group)
         return dense.reshape(tensor.shape)
 
 
@@ -244,7 +246,8 @@ class Int8Compressor(Compressor):
     @classmethod
     def quantized_allreduce(cls, tensor: torch.Tensor, *,
                             average: bool = False,
-                            two_shot: bool | None = None) -> torch.Tensor:
+                            two_shot: bool | None = None,
+                            group=None) -> torch.Tensor:
         """Quantized all-reduce, one of two dataflows (``two_shot=None``
         chooses by world size):
 
@@ -260,7 +263,8 @@ class Int8Compressor(Compressor):
             two_shot = cls.picks_two_shot(size, tensor.numel())
         if not two_shot:
             codes, scale, n = cls._block_quantize(tensor)
-            summed = cls._decode_sum(_all_gather(codes), _all_gather(scale))
+            summed = cls._decode_sum(_all_gather(codes, group),
+                                     _all_gather(scale, group))
             if average:
                 summed = summed / size
             out = summed.reshape(-1)[:n]
@@ -272,8 +276,8 @@ class Int8Compressor(Compressor):
         # blocks [r·m, (r+1)·m) and sums them in f32.
         recv_codes = torch.empty_like(codes)
         recv_scale = torch.empty_like(scale)
-        dist.all_to_all_single(recv_codes, codes)
-        dist.all_to_all_single(recv_scale, scale)
+        dist.all_to_all_single(recv_codes, codes, group=group)
+        dist.all_to_all_single(recv_scale, scale, group=group)
         part = cls._decode_sum(recv_codes.reshape(size, m, -1),
                                recv_scale.reshape(size, m, 1))
         if average:
@@ -281,8 +285,8 @@ class Int8Compressor(Compressor):
         # Shot 2: requantize the reduced shard, all-gather the codes.
         scale2 = cls._scale_for(part)
         codes2 = cls._encode(part, scale2)
-        all_q = _all_gather(codes2).reshape(size * m, -1)
-        all_s = _all_gather(scale2).reshape(size * m, 1)
+        all_q = _all_gather(codes2, group).reshape(size * m, -1)
+        all_s = _all_gather(scale2, group).reshape(size * m, 1)
         full = cls._decode(all_q, all_s).reshape(-1)[:n]
         return full.reshape(orig_shape).to(orig_dtype)
 

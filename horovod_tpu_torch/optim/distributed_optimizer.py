@@ -279,18 +279,24 @@ def make_train_step(
 
     Where the JAX step takes a rank-major batch and shards it over the mesh,
     each process here passes its own rows.  Under
-    ``backward_passes_per_step=k`` the first k-1 calls only accumulate."""
+    ``backward_passes_per_step=k`` the first k-1 calls only accumulate.
+    ``optimizer`` may also be the hook-driven
+    :class:`~horovod_tpu_torch.optim.eager_optimizer.EagerDistributedOptimizer`
+    (or the frontend's ``DistributedOptimizer``): any optimizer with a
+    ``synchronize()`` is synchronized before the clip."""
 
     def step(params, batch) -> TrainStepResult:
         loss = loss_fn(params, batch)
         loss.backward()
         updating = not getattr(optimizer, "accumulating", False)
         if updating and max_grad_norm is not None:
-            if isinstance(optimizer, DistributedOptimizer):
-                optimizer.synchronize()
+            synchronize = getattr(optimizer, "synchronize", None)
+            if synchronize is not None:
+                synchronize()
             torch.nn.utils.clip_grad_norm_(_params_with_grad(optimizer),
                                            max_grad_norm)
-        optimizer.step()
+        if updating or isinstance(optimizer, DistributedOptimizer):
+            optimizer.step()    # the synchronous wrapper counts the pass
         if updating:
             optimizer.zero_grad(set_to_none=True)
         mean_loss = collective_ops.allreduce(loss.detach(), op=Average)

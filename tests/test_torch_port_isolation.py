@@ -55,8 +55,17 @@ def test_port_modules_import_without_jax():
             "horovod_tpu_torch.scheduling",
             "horovod_tpu_torch.prefix_cache",
             "horovod_tpu_torch.serving_scheduler",
-            "horovod_tpu_torch.examples.llama_serving"} <= set(mods)
-    assert len(mods) >= 44
+            "horovod_tpu_torch.examples.llama_serving",
+            "horovod_tpu_torch.ops.eager",
+            "horovod_tpu_torch.ops.handle_manager",
+            "horovod_tpu_torch.timeline", "horovod_tpu_torch.autotune",
+            "horovod_tpu_torch.native",
+            "horovod_tpu_torch.optim.eager_optimizer",
+            "horovod_tpu_torch.torch_frontend",
+            "horovod_tpu_torch.examples.pytorch_mnist",
+            "horovod_tpu_torch.examples.pytorch_synthetic_benchmark"
+            } <= set(mods)
+    assert len(mods) >= 53
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"

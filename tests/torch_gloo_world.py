@@ -1,8 +1,9 @@
 """Helpers for the port's multi-rank tests: a gloo world of W processes
 and the JAX package's SPMD twin on W CPU devices.
 
-``start_world(fn, W, *args)`` spawns W processes (``torch.multiprocessing``,
-``spawn``) that rendezvous through the JAX launcher's variables, call
+``start_world(fn, W, *args, env=None)`` spawns W processes
+(``torch.multiprocessing``, ``spawn``) that rendezvous through the JAX
+launcher's variables, set the variables of ``env`` (a dict), call
 ``basics.init("cpu")``, run ``fn(rank, W, *args)`` (a module-level function,
 so that it pickles by reference) and write its result; the returned
 ``join()`` waits and gives the results in rank order, so the caller can run
@@ -17,6 +18,7 @@ import os
 import pickle
 import socket
 import tempfile
+import time
 
 import torch.multiprocessing as mp
 
@@ -27,7 +29,8 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _entry(rank, fn, world, port, out_dir, args):
+def _entry(rank, fn, world, port, out_dir, args, env):
+    os.environ.update(env or {})
     os.environ.update(
         HOROVOD_TPU_PROCESS_ID=str(rank), HOROVOD_TPU_NUM_PROCESSES=str(world),
         HOROVOD_TPU_COORDINATOR=f"127.0.0.1:{port}",
@@ -43,15 +46,23 @@ def _entry(rank, fn, world, port, out_dir, args):
         pickle.dump(result, f)
 
 
-def start_world(fn, world: int, *args):
+def start_world(fn, world: int, *args, env=None):
     out_dir = tempfile.mkdtemp(prefix=f"gloo{world}_")
     ctx = mp.start_processes(_entry, args=(fn, world, free_port(), out_dir,
-                                           args),
+                                           args, env),
                              nprocs=world, join=False, start_method="spawn")
 
-    def join() -> list:
-        while not ctx.join():
-            pass
+    def join(timeout: float | None = None) -> list:
+        """Every rank's result; with ``timeout`` (seconds), a world still
+        running then is killed and ``TimeoutError`` raised."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while not ctx.join(None if deadline is None
+                           else max(deadline - time.monotonic(), 0.0)):
+            if deadline is not None and time.monotonic() >= deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"gloo world of {world} still running "
+                                   f"after {timeout} s")
         results = []
         for r in range(world):
             with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
