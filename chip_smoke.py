@@ -53,7 +53,17 @@ Phases, one JSON line each; any failure exits non-zero before the result:
    after every step, prefix hits, preemptions and proposals seen, paged
    logits equal to dense ones bit for bit; served tokens/s, TTFT and TPOT,
    the tick's phase shares, the memory report, and one profiled tick at
-   eight slots beside one profiled ``generate`` decode step at B = 4.
+   eight slots beside one profiled ``generate`` decode step at B = 4.  The
+   FIFO run also has device telemetry on and writes a port ``Timeline``
+   (parsed back: counters and ``phase/*`` spans); then the measurement
+   planes off, on, on, off on the FIFO requests ("on": device telemetry,
+   a sampler at 0.05 s, the alert rules, the exporter on a free port with
+   ``/metrics``, ``/snapshot`` and ``/device`` scraped once while it
+   serves, every request traced): tokens and signatures equal on and off,
+   tick and chunk FLOPs equal to the analytic count, ``serve.mfu`` in
+   (0, 1) and equal to the window's FLOPs / s / peak, the HBM gauges equal
+   to the allocator's, every tick's sync split summing to its wait, one
+   span tree a request; served tokens/s off and on (medians of two).
 7. ``train``: Llama-3-8B width cut to ``--train-layers`` (default 8), remat,
    flash attention, f32 master weights and bf16 compute, through the port's
    ``basics.init`` (NCCL, a world of one), ``broadcast_parameters``,
@@ -119,9 +129,12 @@ Phases, one JSON line each; any failure exits non-zero before the result:
     Product, fp16/bf16, grouped, allgather, broadcast, alltoall,
     reducescatter, sparse, the frontend's in-place allreduce) equal bit for
     bit to the synchronous API's on 16 MiB inputs, ``poll`` turning true
-    first, ``barrier`` and ``join``; the timeline (``HOROVOD_TIMELINE``)
-    parsed back with the engine's phases; an autotune window and its log
-    row.  Then ResNet-101 and ViT-B/16 (as phases 9-10) under the
+    first, ``barrier`` and ``join``; two timelines parsed back with the
+    engine's phases: the one ``HOROVOD_TIMELINE`` opens at ``init`` over
+    the allreduces, then (``stop_timeline``, ``start_timeline`` with a
+    ``profiler_dir``) one over the rest, and the ``torch.profiler`` trace
+    ``stop_timeline`` wrote beside it holding CUDA kernels; an autotune
+    window and its log row.  Then ResNet-101 and ViT-B/16 (as phases 9-10) under the
     hook-driven ``torch_frontend.DistributedOptimizer`` and the synchronous
     one: from the same weights the parameters after one step are equal
     bit for bit (cuDNN held to deterministic algorithms, a second
@@ -1172,27 +1185,195 @@ def _profile_call(fn) -> dict:
                                "top_kernels")}
 
 
+ENGINE_SAMPLE_S = 0.05        # the "on" runs' time-series cadence
+PLANES_OFF = {"device_telemetry": False, "sampler": False, "alerts": False,
+              "monitor": False}
+
+
+def _decode_flops_per_token(cfg, positions: int) -> int:
+    """One token through Llama at 2 FLOP a multiply-add: q/k/v/o, the
+    SwiGLU MLP and the LM head, and attention over ``positions`` keys in
+    every layer (the paged programs attend over all ``max_len``)."""
+    d, qd = cfg.dim, cfg.n_heads * cfg.head_dim
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    per_layer = (2 * d * qd + 2 * d * kvd + 3 * d * cfg.ffn_dim
+                 + 2 * qd * positions)
+    return 2 * (cfg.n_layers * per_layer + d * cfg.vocab_size)
+
+
+def _live_model_flops(cfg, reqs, results) -> int:
+    """The model FLOPs of the tokens a run fed through the model: each
+    prompt token and each emitted token but the last, at 2 FLOP a
+    multiply-add, attending only to the keys up to its own position.  The
+    device plane counts what the programs execute instead: every tick over
+    all slots, attention over all ``max_len`` positions, a prompt's last
+    chunk at its full width."""
+    total = 0
+    for q, r in zip(reqs, results):
+        for keys in range(1, len(q.prompt) + max(len(r), 1)):
+            total += _decode_flops_per_token(cfg, keys)
+    return total
+
+
+def _planes_on(reg) -> dict:
+    """Every measurement plane of the engine on: device telemetry, a
+    sampler at ``ENGINE_SAMPLE_S``, the alert rules, the exporter on a
+    free port of 127.0.0.1 (and, set by the caller, every request
+    traced)."""
+    from horovod_tpu_torch.alerts import AlertManager
+    from horovod_tpu_torch.timeseries import MetricsSampler
+
+    sampler = MetricsSampler(reg, sample_s=ENGINE_SAMPLE_S)
+    return {"device_telemetry": True, "sampler": sampler,
+            "alerts": AlertManager(sampler, registry=reg), "monitor": 0}
+
+
+def _scrape(eng, after_steps: int = 10, timeout_s: float = 120.0) -> dict:
+    """Once the engine has run ``after_steps`` steps, GET its exporter's
+    ``/metrics``, ``/snapshot`` and ``/device`` once each (the caller runs
+    this on a thread while the engine serves)."""
+    import urllib.request
+
+    t0 = time.monotonic()
+    while (eng.step_index < after_steps
+           and time.monotonic() - t0 < timeout_s):
+        time.sleep(0.005)
+    out = {"at_step": eng.step_index}
+    base = f"http://{eng.monitor.host}:{eng.monitor.port}"
+    for path in ("metrics", "snapshot", "device"):
+        with urllib.request.urlopen(f"{base}/{path}", timeout=30) as r:
+            out[path] = (r.status, r.read().decode())
+    return out
+
+
+def _device_checks(eng, cfg, dev_rep: dict, snap: dict, reqs,
+                   results) -> dict:
+    """The device plane against the analytic count, the allocator and its
+    own arithmetic: every program counted without error, the tick and
+    chunk FLOPs exactly analytic, ``serve.mfu`` in (0, 1) and equal to the
+    window's FLOPs / s / peak, the HBM gauges equal to
+    ``torch.cuda.memory_allocated`` / ``max_memory_allocated``, and every
+    tick's compute estimate plus host stall equal to its sync wait.
+    Recorded beside them: the live tokens' model FLOPs and their share of
+    the card over the window, when the window holds the whole run."""
+    import torch
+
+    from horovod_tpu_torch.device_telemetry import lookup_peak_flops
+
+    dev = eng.device_telemetry
+    per_token = _decode_flops_per_token(cfg, ENGINE["max_len"])
+    progs = dev_rep["programs"]
+    win = dev_rep["win"]
+    mfu = snap["gauges"].get("serve.mfu")
+    mem = dev.poll_memory() or {"available": False}
+    allocated = torch.cuda.memory_allocated()
+    peak_alloc = torch.cuda.max_memory_allocated()
+    split = max(abs(r["compute_est_s"] + r["host_stall_s"] - r["sync_s"])
+                for r in dev._ring)
+    out = {
+        "peak_flops": dev_rep["peak_flops"],
+        "flops": {k: v["flops"] for k, v in progs.items()},
+        "bytes_accessed": {k: v["bytes_accessed"] for k, v in progs.items()},
+        "analytic_flops": {"tick": ENGINE["n_slots"] * per_token,
+                           "chunk": ENGINE["chunk"] * per_token},
+        "serve_mfu": mfu, "win": {k: win[k] for k in (
+            "n", "elapsed_s", "flops", "flops_per_s", "mfu", "sync_s",
+            "compute_est_s", "host_stall_s", "overlap_headroom_pct",
+            "arithmetic_intensity", "h2d_bytes", "d2h_bytes",
+            "dispatches")},
+        "hbm": {**mem, "param_bytes": dev.param_bytes,
+                "kv_total_bytes": dev.kv_total_bytes,
+                "overhead_bytes": mem.get("bytes_in_use", 0)
+                - dev.param_bytes - dev.kv_total_bytes,
+                "torch_memory_allocated": allocated,
+                "torch_max_memory_allocated": peak_alloc},
+        "split_max_abs_err_s": split,
+    }
+    live = _live_model_flops(cfg, reqs, results)
+    whole = win["n"] == dev_rep["ticks"] and win["elapsed_s"] > 0.0
+    out["live_model"] = {
+        "flops": live, "window_holds_run": whole,
+        "executed_over_live": win["flops"] / live if whole else None,
+        "model_flops_share": (live / win["elapsed_s"]
+                              / dev_rep["peak_flops"]) if whole else None,
+        "first_step": ({k: dev._ring[0][k] for k in ("dt_s", "flops")}
+                       if whole else None),
+    }
+    out["checks"] = {
+        "captures_without_error": all("error" not in v
+                                      for v in progs.values()),
+        "tick_flops_analytic": progs["tick"]["flops"]
+        == out["analytic_flops"]["tick"],
+        "chunk_flops_analytic": progs["chunk"]["flops"]
+        == out["analytic_flops"]["chunk"],
+        "peak_known": snap["gauges"].get("device.peak_flops_known") == 1
+        and dev_rep["peak_flops"] == lookup_peak_flops(
+            torch.cuda.get_device_name(0)),
+        "mfu_in_0_1": mfu is not None and 0.0 < mfu < 1.0,
+        "mfu_is_window_flops_over_peak": mfu is not None and math.isclose(
+            mfu, win["flops"] / win["elapsed_s"] / dev_rep["peak_flops"],
+            rel_tol=1e-9),
+        "hbm_gauges_equal_allocator": mem.get("bytes_in_use") == allocated
+        and mem.get("peak_bytes_in_use") == peak_alloc
+        and snap["gauges"].get("device.bytes_in_use") is not None,
+        "hbm_covers_model": mem.get("bytes_in_use", 0)
+        >= dev.param_bytes + dev.kv_total_bytes,
+        "sync_split_sums": split <= 1e-9,
+    }
+    return out
+
+
 def _engine_run(params, cfg, reqs, *, profile_tick: bool = False,
+                planes: str | None = None, timeline_path: str | None = None,
                 **kw) -> tuple[dict, list]:
     """Serve ``reqs`` through a fresh ``ServeEngine`` (a registry of its
     own) and return its report and the tokens of each request;
     ``profile_tick`` adds the profiler's phase shares and the memory
     report, then submits eight more requests and profiles one tick with
-    all eight slots decoding."""
+    all eight slots decoding.  ``planes``: ``"off"`` turns every
+    measurement plane off, ``"on"`` turns them all on (``_planes_on``,
+    every request traced) and scrapes the exporter once while the engine
+    serves; ``None`` keeps the engine's defaults.  ``timeline_path``: a
+    port ``Timeline`` written there and parsed back."""
+    import gc
+    import threading
+
     import torch
 
-    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch import metrics, tracing
     from horovod_tpu_torch.serving import Request
     from horovod_tpu_torch.serving_scheduler import DECODE, PREFILL, ServeEngine
+    from horovod_tpu_torch.timeline import Timeline
 
+    torch.cuda.reset_peak_memory_stats()     # the HBM peak is this run's
     reg = metrics.MetricsRegistry(event_log=None)
-    eng = ServeEngine(params, cfg, **ENGINE, metrics=reg,
-                      profile=profile_tick, **kw)
+    if planes == "on":
+        kw.update(_planes_on(reg))
+    elif planes == "off":
+        kw.update(PLANES_OFF)
+    tl = Timeline(timeline_path) if timeline_path else None
+    with _env({"HVD_TORCH_TRACE_SAMPLE": "1" if planes == "on" else "0"}):
+        eng = ServeEngine(params, cfg, **ENGINE, metrics=reg,
+                          profile=profile_tick, timeline=tl, **kw)
+    scraped: dict = {}
+    scraper = None
+    if planes == "on":
+        scraper = threading.Thread(
+            target=lambda: scraped.update(_scrape(eng)), daemon=True)
+        scraper.start()
     sync()
     t0 = time.perf_counter()
-    results = eng.run(reqs)
-    sync()
-    wall = time.perf_counter() - t0
+    try:
+        results = eng.run(reqs)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        if scraper is not None:
+            scraper.join(timeout=150)
+        if eng.monitor is not None:
+            eng.monitor.stop()
+    dev_rep = (eng.device_telemetry.report()
+               if eng.device_telemetry is not None else None)
     snap = eng.metrics_snapshot()
     hist = snap["histograms"]
     sizes = eng.compile_cache_sizes()
@@ -1200,7 +1381,8 @@ def _engine_run(params, cfg, reqs, *, profile_tick: bool = False,
                   if eng.spec else {"tick": 1, "chunk": 1, "set_row": 1})
     tokens = sum(len(r) for r in results)
     out = {
-        "options": dict(kw),
+        "options": {k: v if isinstance(v, (bool, int, float, str))
+                    else type(v).__name__ for k, v in kw.items()},
         "requests": len(reqs), "tokens": tokens, "steps": eng.step_index,
         "wall_s": wall, "served_tokens_per_s": tokens / wall,
         "ttft_s": {q: hist["serve.ttft_s"][q] for q in ("p50", "p99")},
@@ -1216,6 +1398,38 @@ def _engine_run(params, cfg, reqs, *, profile_tick: bool = False,
                              for r, q in zip(results, reqs)),
     }
     out["signature_ok"] = sizes == want_sizes and out["retrace"] == 0
+    if dev_rep is not None:
+        out["device"] = _device_checks(eng, cfg, dev_rep, snap, reqs,
+                                       results)
+    if planes == "on":
+        forest = tracing.build_forest(eng.tracer.recent())
+        roots = [r for trees in forest.values() for r in trees]
+        metrics_text = scraped.get("metrics", (0, ""))[1]
+        snap_scraped = json.loads(scraped.get("snapshot", (0, "{}"))[1])
+        out["planes"] = {
+            "traces": len(forest), "spans": len(eng.tracer.recent()),
+            "scraped_at_step": scraped.get("at_step"),
+            "scrape_status": {k: scraped[k][0] for k in
+                              ("metrics", "snapshot", "device")
+                              if k in scraped},
+            "series": len(snap["timeseries"]["tiers"]["raw"]["series"]),
+            "samples": snap["counters"].get("ts.samples"),
+            "alerts_firing": snap["alerts"]["firing"],
+            "alert_evals": snap["counters"].get("alert.evals"),
+        }
+        out["planes"]["checks"] = {
+            "one_tree_a_request": len(forest) == len(reqs)
+            and len(roots) == len(reqs)
+            and all(r["name"] == "serve.request" and not r["orphan"]
+                    and not r["unclosed"] for r in roots),
+            "scraped_metrics_hold_serve_mfu": any(
+                ln.startswith("serve_mfu ")
+                for ln in metrics_text.splitlines()),
+            "scraped_snapshot_sections": {"device", "timeseries",
+                                          "alerts"} <= set(snap_scraped),
+            "scraped_device": scraped.get("device", (0,))[0] == 200,
+            "monitor_stopped": eng.monitor._thread is None,
+        }
     if profile_tick:
         out["profile_phases_pct"] = {
             p: v["pct_of_tick"] for p, v in snap["profile"]["phases"].items()}
@@ -1231,9 +1445,39 @@ def _engine_run(params, cfg, reqs, *, profile_tick: bool = False,
         out["profiled_tick"] = _profile_call(eng.step)
         while eng.pending():
             eng.step()
+        if eng.device_telemetry is not None:
+            out["nested_sync_phases"] = {
+                p: snap["profile"]["phases"][p]["count"]
+                for p in ("device_sync.compute_est",
+                          "device_sync.host_stall")}
+    if tl is not None:
+        tl.close()
+        out["timeline"] = _engine_timeline_check(timeline_path)
+    # the exporter and the engine refer to each other: collect the cycle,
+    # or the next run starts with this one's pool still allocated
     del eng
+    gc.collect()
     torch.cuda.empty_cache()
     return out, [list(r) for r in results]
+
+
+def _engine_timeline_check(path: str) -> dict:
+    """The engine's Chrome timeline, parsed back: strict JSON, the
+    scheduler's counters (``ph: "C"``) and the profiler's ``phase/*``
+    async spans, each ``b`` matched by its ``e``."""
+    with open(path) as f:
+        events = json.load(f)
+    counters = sorted({e["name"] for e in events if e["ph"] == "C"})
+    spans = [e for e in events if e["ph"] in ("b", "e")
+             and e["name"].startswith("phase/")]
+    begins = sorted((e["name"], e["id"]) for e in spans if e["ph"] == "b")
+    ends = sorted((e["name"], e["id"]) for e in spans if e["ph"] == "e")
+    return {"events": len(events), "counters": counters,
+            "phase_spans": len(begins),
+            "phases": sorted({n for n, _ in begins}),
+            "ok": {"SCHED", "LIFECYCLE"} <= set(counters)
+            and len(begins) > 0 and begins == ends
+            and events[-1]["name"] == "done"}
 
 
 def _paged_equals_dense(params, cfg, seed: int) -> dict:
@@ -1278,17 +1522,24 @@ def _paged_equals_dense(params, cfg, seed: int) -> dict:
 
 def phase_engine(cfg, params, seed: int) -> dict:
     """``ServeEngine`` at Llama-3-8B width: four runs of 16 requests in one
-    process, (a) FIFO, (b) ``prefix_cache=True``, (c) an overcommitted pool
-    of 25 blocks (three full slots and trash) with ``preempt_after=2``, (d)
-    ``spec=True, draft_k=4`` on prompts with a repeated phrase; every token
-    held to greedy consistency, one argument signature per program, the
-    block walk after every step, paged == dense bit for bit, and one
-    profiled tick at eight slots beside one profiled ``generate`` decode
-    step at B = 4."""
+    process, (a) FIFO with device telemetry and a port ``Timeline``, (b)
+    ``prefix_cache=True``, (c) an overcommitted pool of 25 blocks (three
+    full slots and trash) with ``preempt_after=2``, (d) ``spec=True,
+    draft_k=4`` on prompts with a repeated phrase; every token held to
+    greedy consistency, one argument signature per program, the block walk
+    after every step, paged == dense bit for bit, and one profiled tick at
+    eight slots beside one profiled ``generate`` decode step at B = 4.
+    Then the measurement planes off, on, on, off on (a)'s requests: equal
+    tokens and signatures, and the device plane, the spans and the
+    exporter checked on each "on" run (``_device_checks``)."""
+    import tempfile
+
     import torch
 
     from horovod_tpu_torch.models import llama
 
+    tl_path = os.path.join(tempfile.mkdtemp(prefix="hvd_engine_"),
+                           "a_fifo_timeline.json")
     os.environ["HVD_TORCH_VERIFY_BLOCKS"] = "1"
     try:
         # warm-up at the tick's shapes on a small pool, outside the runs
@@ -1299,8 +1550,9 @@ def phase_engine(cfg, params, seed: int) -> dict:
         reqs = _engine_requests(cfg, seed)
         runs = {}
         outputs = {}
-        for name, kw in (("a_fifo", {}), ("b_prefix_cache",
-                                          {"prefix_cache": True}),
+        for name, kw in (("a_fifo", {"device_telemetry": True,
+                                     "timeline_path": tl_path}),
+                         ("b_prefix_cache", {"prefix_cache": True}),
                          ("c_overcommitted", {"n_blocks": 25,
                                               "preempt_after": 2}),
                          ("d_spec", {"spec": True, "draft_k": 4})):
@@ -1313,6 +1565,12 @@ def phase_engine(cfg, params, seed: int) -> dict:
             emit("serve engine run", run=name, **runs[name])
     finally:
         os.environ.pop("HVD_TORCH_VERIFY_BLOCKS", None)
+    # the measurement planes off and on, in turns, on the FIFO requests
+    planes = []
+    for turn in ("off", "on", "on", "off"):
+        run, toks = _engine_run(params, cfg, reqs, planes=turn)
+        planes.append((turn, run, toks))
+        emit("serve engine planes", turn=turn, **run)
     paged = _paged_equals_dense(params, cfg, seed)
 
     prompt_t, lengths_t = _generate_prompt(cfg, seed)
@@ -1340,7 +1598,27 @@ def phase_engine(cfg, params, seed: int) -> dict:
         "preemptions": c["counters"]["preemptions"] >= 1,
         "spec_proposed": d["spec_counters"]["proposed"] > 0,
         "paged_equals_dense": paged["logits_bit_equal"],
+        "a_fifo_timeline": a["timeline"]["ok"],
+        "a_fifo_nested_sync_phases": all(
+            n > 0 for n in a["nested_sync_phases"].values()),
+        **{f"a_fifo_device.{k}": v
+           for k, v in a["device"]["checks"].items()},
     }
+    off_runs = [(r, t) for turn, r, t in planes if turn == "off"]
+    on_runs = [(r, t) for turn, r, t in planes if turn == "on"]
+    checks["planes_tokens_bit_equal"] = all(
+        t == off_runs[0][1] for _, t in off_runs + on_runs)
+    checks["planes_signatures_equal"] = all(
+        r["compile_cache_sizes"] == off_runs[0][0]["compile_cache_sizes"]
+        and r["retrace"] == 0 for r, _ in off_runs + on_runs)
+    for i, (r, _) in enumerate(on_runs):
+        checks.update({f"on{i}.device.{k}": v
+                       for k, v in r["device"]["checks"].items()})
+        checks.update({f"on{i}.planes.{k}": v
+                       for k, v in r["planes"]["checks"].items()})
+    rates = {turn: statistics.median(
+        r["served_tokens_per_s"] for t, r, _ in planes if t == turn)
+        for turn in ("off", "on")}
     out = {"engine": ENGINE, "n_layers": cfg.n_layers,
            "block_bytes": a["memory_report"]["kv"]["block_bytes"],
            "pool_bytes": a["memory_report"]["kv"]["total_bytes"],
@@ -1348,11 +1626,20 @@ def phase_engine(cfg, params, seed: int) -> dict:
                                    for k, r in runs.items()},
            "profiled_tick_8_slots": a["profiled_tick"],
            "profiled_generate_decode_step_b4": decode_profile,
-           "paged_vs_dense": paged, "checks": checks,
-           "ok": all(checks.values())}
+           "paged_vs_dense": paged,
+           "device_a_fifo": a["device"],
+           "device_on": [r["device"] for r, _ in on_runs],
+           "planes_served_tokens_per_s": {
+               "runs": [[turn, r["served_tokens_per_s"]]
+                        for turn, r, _ in planes],
+               "median_off": rates["off"], "median_on": rates["on"],
+               "on_over_off": rates["on"] / rates["off"]},
+           "a_fifo_equals_planes_off": outputs["a_fifo"] == off_runs[0][1],
+           "checks": checks, "ok": all(checks.values())}
     emit("serve engine", **out)
     if not out["ok"]:
-        raise PhaseError(f"serve engine failed its checks: {checks}")
+        raise PhaseError("serve engine failed its checks: "
+                         f"{[k for k, v in checks.items() if not v]}")
     return out
 
 
@@ -2366,12 +2653,12 @@ def _env(values: dict):
                 os.environ[k] = v
 
 
-def _eager_module_api(seed: int, log_path: str) -> dict:
+def _eager_module_api(seed: int, log_path: str, midway) -> dict:
     """Every collective of the module API and the frontend, async, held
     bit for bit against the synchronous API on the same inputs (a world of
     one: the input itself); ``poll`` must turn true before ``synchronize``;
     then grouped allreduces until the autotuner closes a window and logs
-    its row."""
+    its row.  ``midway()`` runs after the single allreduces."""
     import torch
 
     from horovod_tpu_torch import torch_frontend as F
@@ -2408,6 +2695,7 @@ def _eager_module_api(seed: int, log_path: str) -> dict:
             x, average=True, name=f"api.{comp}", compression=c))
         checks[f"allreduce_{comp}"] = torch.equal(
             got, C.allreduce(x, average=True, compression=c))
+    midway()
     grouped = E.grouped_allreduce_eager([x, *ys], average=True)
     sync = C.grouped_allreduce([x, *ys], average=True)
     checks["grouped_allreduce"] = all(map(torch.equal, grouped, sync))
@@ -2459,22 +2747,39 @@ def _eager_module_api(seed: int, log_path: str) -> dict:
                       if k != "recent_negotiate_s"}}
 
 
-def _timeline_check(path: str) -> dict:
-    """The timeline the module API wrote: strict JSON, a track per tensor,
-    the engine's phases on an allreduce's track."""
+def _timeline_check(path: str, track: str, kind: str) -> dict:
+    """A timeline the module API wrote: strict JSON, a track per tensor,
+    the engine's phases for a ``kind`` op (``ALLREDUCE``, ``ALLGATHER``)
+    on ``track``."""
     with open(path) as f:
         events = json.load(f)
     pids = {e["pid"]: e["args"]["name"] for e in events
             if e.get("name") == "process_name"}
     phases = sorted({(e["name"], e["ph"]) for e in events
-                     if pids.get(e["pid"]) == "api.Sum"})
-    want = {("NEGOTIATE_ALLREDUCE", "B"), ("NEGOTIATE_ALLREDUCE", "E"),
-            ("NEGOTIATE_TICK_r0", "i"), ("ALLREDUCE", "B"),
-            ("ALLREDUCE", "E"), ("DISPATCH", "B"), ("DISPATCH", "E"),
+                     if pids.get(e["pid"]) == track})
+    want = {(f"NEGOTIATE_{kind}", "B"), (f"NEGOTIATE_{kind}", "E"),
+            ("NEGOTIATE_TICK_r0", "i"), (kind, "B"), (kind, "E"),
             ("WAIT_FOR_OUTPUT", "b"), ("WAIT_FOR_OUTPUT", "e")}
+    if kind == "ALLREDUCE":
+        want |= {("DISPATCH", "B"), ("DISPATCH", "E")}
     return {"events": len(events), "tensors": len(pids),
-            "api.Sum": [list(p) for p in phases],
+            track: [list(p) for p in phases],
             "ok": want <= set(phases) and events[-1]["name"] == "done"}
+
+
+def _profiler_trace_check(prof_dir: str) -> dict:
+    """The ``torch.profiler`` trace ``stop_timeline`` wrote beside the
+    timeline: its file, its events, and CUDA kernels among them."""
+    files = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
+    kernels = events = 0
+    for name in files:
+        with open(os.path.join(prof_dir, name)) as f:
+            trace = json.load(f)
+        for e in trace.get("traceEvents", []):
+            events += 1
+            kernels += e.get("cat") == "kernel"
+    return {"files": files, "events": events, "cuda_kernels": kernels,
+            "ok": files == ["trace_rank0.json"] and kernels > 0}
 
 
 def _host_split(model, batch, opt, steps: int = 4) -> dict:
@@ -2671,22 +2976,39 @@ def phase_train_eager(seed: int) -> dict:
     from horovod_tpu_torch.models.resnet import ResNet101
     from horovod_tpu_torch.models.vit import ViT_B16
 
+    from horovod_tpu_torch.timeline import start_timeline, stop_timeline
+
     tmp = tempfile.mkdtemp(prefix="hvd_eager_")
+    env_timeline = os.path.join(tmp, "env_timeline.json")
     timeline = os.path.join(tmp, "timeline.json")
+    prof_dir = os.path.join(tmp, "profile")
     tune_log = os.path.join(tmp, "autotune.csv")
     basics.shutdown()
     with _env({"HVD_TORCH_NATIVE_CONTROLLER": "on",
                "HVD_TORCH_CONTROLLER_TRANSPORT": "local:chip_smoke",
-               "HOROVOD_TIMELINE": timeline, "HOROVOD_AUTOTUNE": "1",
+               "HOROVOD_TIMELINE": env_timeline,
+               "HOROVOD_AUTOTUNE": "1",
                "HOROVOD_AUTOTUNE_LOG": tune_log,
                "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
                "HOROVOD_AUTOTUNE_STEADY_STATE_SAMPLES": "2"}):
         basics.init()
+    def midway():
+        # the env timeline ends; a timeline and a torch.profiler trace
+        # over the same window take over
+        stop_timeline()
+        start_timeline(timeline, profiler_dir=prof_dir)
+
     try:
-        api = _eager_module_api(seed, tune_log)
+        try:
+            api = _eager_module_api(seed, tune_log, midway)
+        finally:
+            stop_timeline()
     finally:
-        basics.shutdown()           # closes the timeline
-    api["timeline"] = _timeline_check(timeline)
+        basics.shutdown()
+    api["env_timeline"] = _timeline_check(env_timeline, "api.Sum",
+                                          "ALLREDUCE")
+    api["timeline"] = _timeline_check(timeline, "api.gather", "ALLGATHER")
+    api["timeline"]["profiler_trace"] = _profiler_trace_check(prof_dir)
     basics.init()                   # the user's default: no controller at 1
     torch.backends.cudnn.benchmark = True
     routes = ("off", "sync", "hook", "hook", "sync", "off")
@@ -2713,7 +3035,10 @@ def phase_train_eager(seed: int) -> dict:
                k: sum(r["launches"][k] for r in vit["runs"])
                for k in vit_want},
            "checks": {**{f"api.{k}": v for k, v in api["checks"].items()},
+                      "env_timeline": api["env_timeline"]["ok"],
                       "timeline": api["timeline"]["ok"],
+                      "timeline_profiler_cuda_kernels":
+                          api["timeline"]["profiler_trace"]["ok"],
                       **{f"resnet101.{k}": v
                          for k, v in resnet["checks"].items()},
                       **{f"vit_b16.{k}": v

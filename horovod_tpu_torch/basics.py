@@ -56,6 +56,8 @@ class _State:
     # timeline it writes; both guarded by ``lock``.
     engine: Any = None
     timeline: Any = None
+    # start_timeline(profiler_dir=...): (torch.profiler.profile, its dir)
+    profiler: Any = None
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 
@@ -138,6 +140,14 @@ def shutdown() -> None:
     with _state.lock:
         engine, _state.engine = _state.engine, None
         timeline, _state.timeline = _state.timeline, None
+        profiling, _state.profiler = _state.profiler, None
+    if profiling is not None:
+        # a start_timeline(profiler_dir=...) window left open: stop it, or
+        # the next profiler to start would be refused
+        try:
+            profiling[0].stop()
+        except Exception:
+            pass
     try:
         if engine is not None:
             engine.shutdown()

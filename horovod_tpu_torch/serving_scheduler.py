@@ -50,37 +50,45 @@ Each tick reads the device once (the emitted tokens, and on a spec engine
 the accepted counts with them); the tick's inputs go up from pinned host
 memory without a wait.
 
-Not ported yet (ROADMAP items 7 and 16): the live monitor, the
-time-series sampler, alerts and the capacity advisor, causal-tracing
-spans, device telemetry, ``measure_throughput`` and its siblings, and
-tensor-parallel serving (``tp_size > 1``, a multi-rank item).  Those
-attributes are ``None``; asking for one raises ``NotImplementedError``,
-and the environment knobs that switch them on in the reference are
-ignored.  ``RequestResult.trace`` (the :class:`~horovod_tpu_torch.metrics.Trace`
-stamps behind TTFT and TPOT) stays.  The engine is greedy-only; sampling
-pools stay on :class:`~horovod_tpu_torch.serving.ContinuousBatcher`.
+Measurement planes, as the reference's: the live exporter
+(:mod:`~horovod_tpu_torch.monitor`), the time-series sampler and the alert
+rules with the capacity advisor (:mod:`~horovod_tpu_torch.timeseries`,
+:mod:`~horovod_tpu_torch.alerts`, on by default at 1 s), causal-tracing
+spans (:mod:`~horovod_tpu_torch.tracing`) and device telemetry
+(:mod:`~horovod_tpu_torch.device_telemetry`: counted FLOPs and bytes per
+program, ``serve.mfu``, the HBM gauges and the ``device_sync`` split).
+The reference keeps its telemetry plane at ``engine.device``; here
+``device`` is the torch device and the plane is ``device_telemetry``.
+
+Not ported yet (ROADMAP item 16): ``measure_throughput`` and its siblings.
+Tensor-parallel serving (``tp_size > 1``, ROADMAP item 12b) raises
+``NotImplementedError``.  The engine is greedy-only; sampling pools stay
+on :class:`~horovod_tpu_torch.serving.ContinuousBatcher`.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import json
 import os
 import sys
-import threading
 import time
-import warnings
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
+from horovod_tpu_torch import alerts as alerts_mod
+from horovod_tpu_torch import device_telemetry as device_telemetry_mod
 from horovod_tpu_torch import drafting as drafting_mod
 from horovod_tpu_torch import faults as faults_mod
 from horovod_tpu_torch import metrics as metrics_mod
+from horovod_tpu_torch import monitor as monitor_mod
 from horovod_tpu_torch import profiler as profiler_mod
 from horovod_tpu_torch import scheduling as scheduling_mod
+from horovod_tpu_torch import timeseries as timeseries_mod
+from horovod_tpu_torch import tracing as tracing_mod
 from horovod_tpu_torch.metrics import Trace
 from horovod_tpu_torch.models import llama
 from horovod_tpu_torch.prefix_cache import RadixPrefixCache
@@ -89,9 +97,6 @@ from horovod_tpu_torch.serving import (
 )
 
 FREE, PREFILL, DECODE = "free", "prefill", "decode"
-
-_NOT_PORTED = ("is not ported yet (ROADMAP items 7 and 16: device "
-               "telemetry and the fleet control plane)")
 
 
 @dataclasses.dataclass
@@ -149,125 +154,6 @@ class _Slot:
     slo_deadline: float | None = None    # enqueue + slo_s (EDF policy)
     admit_seq: int = -1                  # monotonic; max = youngest row
     draft: "drafting_mod.NgramDraftState | None" = None
-
-
-# ---------------------------------------------------------------------------
-# SLO goodput window (the reference's horovod_tpu/monitor.py).
-# ---------------------------------------------------------------------------
-
-
-def _sample_percentile(sorted_vals: list[float], q: float) -> float:
-    """Linear-interpolated quantile over a small sorted sample (the
-    window is a few hundred traces — exact beats bucketed here)."""
-    if not sorted_vals:
-        return 0.0
-    if len(sorted_vals) == 1:
-        return sorted_vals[0]
-    pos = q * (len(sorted_vals) - 1)
-    i = int(pos)
-    frac = pos - i
-    if i + 1 >= len(sorted_vals):
-        return sorted_vals[-1]
-    return sorted_vals[i] + (sorted_vals[i + 1] - sorted_vals[i]) * frac
-
-
-def _env_float(name: str, default: float) -> float:
-    raw = os.environ.get(name)
-    if raw is None:
-        return default
-    try:
-        return float(raw)
-    except ValueError:
-        warnings.warn(f"{name}={raw!r} is not a float; using {default}",
-                      RuntimeWarning, stacklevel=2)
-        return default
-
-
-class SLOWindow:
-    """Ring buffer of terminal request traces answering "are we meeting
-    SLOs *now*?".  A copy of ``horovod_tpu/monitor.py``'s ``SLOWindow``,
-    kept here until the monitor is ported (ROADMAP item 16), when it moves
-    there.
-
-    A request is GOOD when it terminated ``OK`` AND met its latency
-    target: its own ``Request.slo_s`` when set, else the window default
-    (``slo_e2e_s`` / ``HVD_TORCH_SLO_E2E_S``); with neither, OK alone is
-    good (pure completion goodput).  ``goodput()`` is the good fraction
-    of the last ``window`` terminal requests; ``report()`` adds windowed
-    TTFT/TPOT/E2E percentiles."""
-
-    def __init__(self, window: int = 256, slo_e2e_s: float | None = None):
-        if window <= 0:
-            raise ValueError(f"window must be positive, got {window}")
-        self.slo_e2e_s = (slo_e2e_s if slo_e2e_s is not None
-                          else (_env_float("HVD_TORCH_SLO_E2E_S", 0.0)
-                                or None))
-        self._lock = threading.Lock()
-        self._traces: collections.deque = collections.deque(maxlen=window)
-
-    def add(self, trace: Any, slo_s: float | None = None) -> None:
-        """Record one TERMINAL trace; ``slo_s`` is the request's own
-        target, overriding the window default."""
-        with self._lock:
-            self._traces.append((trace, slo_s))
-
-    def __len__(self) -> int:
-        with self._lock:
-            return len(self._traces)
-
-    def _good(self, trace: Any, slo_s: float | None) -> bool:
-        if trace.status != "OK":
-            return False
-        target = slo_s if slo_s is not None else self.slo_e2e_s
-        if target is None:
-            return True
-        e2e = trace.e2e_s
-        return e2e is not None and e2e <= target
-
-    def goodput(self) -> float:
-        """Fraction of windowed terminal requests that were good; 1.0
-        when the window is empty (no evidence of badness)."""
-        with self._lock:
-            items = list(self._traces)
-        if not items:
-            return 1.0
-        return sum(self._good(t, s) for t, s in items) / len(items)
-
-    def report(self) -> dict:
-        """Windowed SLO summary: goodput, status mix, and TTFT/TPOT/E2E
-        p50/p90/p99 over the last ``window`` terminal requests."""
-        with self._lock:
-            items = list(self._traces)
-        out: dict[str, Any] = {
-            "window": self._traces.maxlen,
-            "n": len(items),
-            "slo_e2e_s": self.slo_e2e_s,
-            "goodput": 1.0,
-            "statuses": {},
-        }
-        if not items:
-            out.update(ttft_s={}, tpot_s={}, e2e_s={})
-            return out
-        good = 0
-        statuses: dict[str, int] = {}
-        series: dict[str, list[float]] = {
-            "ttft_s": [], "tpot_s": [], "e2e_s": []}
-        for t, s in items:
-            good += self._good(t, s)
-            statuses[t.status or "?"] = statuses.get(t.status or "?", 0) + 1
-            for key in series:
-                v = getattr(t, key)
-                if v is not None:
-                    series[key].append(v)
-        out["goodput"] = good / len(items)
-        out["statuses"] = dict(sorted(statuses.items()))
-        for key, vals in series.items():
-            vals.sort()
-            out[key] = ({"p50": _sample_percentile(vals, 0.50),
-                         "p90": _sample_percentile(vals, 0.90),
-                         "p99": _sample_percentile(vals, 0.99),
-                         "n": len(vals)} if vals else {})
-        return out
 
 
 # ---------------------------------------------------------------------------
@@ -351,11 +237,26 @@ class ServeEngine:
     ``HVD_TORCH_SCHED_POLICY``.
 
     ``tp_size`` (``None`` reads ``HVD_TORCH_TP``, default 1) must be 1:
-    tensor-parallel serving is not ported.  ``monitor``, ``sampler``,
-    ``alerts`` and ``device_telemetry`` are accepted only as ``None`` or
-    ``False`` (ROADMAP items 7 and 16); the reference's environment knobs
-    for them (``*_MONITOR_PORT``, ``*_SAMPLE_S``, ``*_ALERTS``,
-    ``*_DEVICE_TELEMETRY``, trace sampling) are ignored.
+    tensor-parallel serving is not ported.
+
+    The measurement planes take the reference's values: ``None`` reads the
+    environment, ``False`` turns the plane off, an instance is used as it
+    is.  ``monitor``: an int binds a
+    :class:`~horovod_tpu_torch.monitor.MonitorServer` on that port (0 =
+    any free one; ``None`` reads ``HVD_TORCH_MONITOR_PORT``, unset = off).
+    ``sampler``: a :class:`~horovod_tpu_torch.timeseries.MetricsSampler`
+    ticked every step (``None``: every ``HVD_TORCH_SAMPLE_S`` seconds,
+    default 1.0, ``<= 0`` off); ``alerts``: an
+    :class:`~horovod_tpu_torch.alerts.AlertManager` over it (``None``:
+    ``HVD_TORCH_ALERTS``, default on), and a capacity advisor rides along
+    with any sampler.  ``device_telemetry``: ``True`` (or
+    ``HVD_TORCH_DEVICE_TELEMETRY=1``) counts every program's FLOPs and
+    bytes at construction and reports ``serve.mfu``, the HBM gauges and
+    the ``device_sync`` split (:mod:`~horovod_tpu_torch.device_telemetry`);
+    the plane lives at ``self.device_telemetry``.  Tracing: a request's
+    ``trace_ctx`` joins its caller's trace; otherwise
+    ``HVD_TORCH_TRACE_SAMPLE`` head-samples engine roots keyed on the
+    request id (seed ``HVD_TORCH_TRACE_SEED``).
     """
 
     def __init__(self, params: dict, cfg: llama.LlamaConfig, *,
@@ -389,12 +290,6 @@ class ServeEngine:
             raise ValueError("preempt_after must be >= 1 (or None)")
         if watchdog_steps < 1:
             raise ValueError("watchdog_steps must be >= 1")
-        for name, plane in (("monitor", monitor), ("sampler", sampler),
-                            ("alerts", alerts),
-                            ("device_telemetry", device_telemetry)):
-            if plane is not None and plane is not False:
-                raise NotImplementedError(f"ServeEngine({name}=...) "
-                                          + _NOT_PORTED)
         block_size = chunk if block_size is None else block_size
         if tp_size is None:
             raw = os.environ.get("HVD_TORCH_TP", "")
@@ -443,14 +338,26 @@ class ServeEngine:
         for h in ("serve.ttft_s", "serve.tpot_s", "serve.queue_wait_s",
                   "serve.e2e_s"):
             self.metrics.histogram(h)
+        # Causal tracing: spans are emitted after the fact from the Trace
+        # stamps, so with sampling off a request pays one None-check.
+        self.tracer = tracing_mod.Tracer(self.metrics)
+        self._trace_fraction = tracing_mod.env_sample_fraction()
+        self._trace_seed = tracing_mod.env_trace_seed()
         if profile is None:
             profile = os.environ.get("HVD_TORCH_PROFILE", "") == "1"
         self.prof = (profiler_mod.TickProfiler(
             self.metrics, timeline=timeline, window=profile_window)
             if profile else None)
-        # the planes not ported yet (ROADMAP items 7 and 16)
-        self.tracer = self.monitor = self.sampler = None
-        self.alerts = self.advisor = self.device_telemetry = None
+        if device_telemetry is False:
+            self.device_telemetry = None
+        elif device_telemetry is None:
+            self.device_telemetry = device_telemetry_mod.maybe_telemetry(
+                self.metrics, device=self.device)
+        elif device_telemetry is True:
+            self.device_telemetry = device_telemetry_mod.DeviceTelemetry(
+                self.metrics, device=self.device)
+        else:
+            self.device_telemetry = device_telemetry
         # Retrace sentry: compile_cache_sizes() is diffed every step and
         # growth past one signature per program bumps serve.retrace
         # (fatal under HVD_TORCH_RETRACE_FATAL=1).
@@ -458,8 +365,41 @@ class ServeEngine:
             "HVD_TORCH_RETRACE_FATAL", "") == "1"
         self.metrics.counter("serve.retrace")
         self._t0 = time.monotonic()
-        self.slo = SLOWindow(window=slo_window, slo_e2e_s=slo_e2e_s)
+        self._last_step_ts: float | None = None
+        self.slo = monitor_mod.SLOWindow(window=slo_window,
+                                         slo_e2e_s=slo_e2e_s)
         self._slo_targets: dict[int, float | None] = {}
+        # Health plane: sampler and alert rules ticked from step(), no
+        # threads; the capacity advisor rides along with any sampler.
+        if sampler is False:
+            self.sampler = None
+        elif sampler is None:
+            self.sampler = timeseries_mod.maybe_sampler(self.metrics)
+        else:
+            self.sampler = sampler
+        if alerts is False or self.sampler is None:
+            self.alerts = None
+        elif alerts is None:
+            self.alerts = alerts_mod.maybe_alerts(self.sampler, self.metrics)
+        else:
+            self.alerts = alerts
+        self.advisor = (alerts_mod.CapacityAdvisor(
+            self.sampler, alerts=self.alerts, registry=self.metrics)
+            if self.sampler is not None else None)
+        if monitor is False:
+            self.monitor = None
+        elif monitor is None:
+            self.monitor = monitor_mod.maybe_start_monitor(self.metrics, self)
+        elif isinstance(monitor, monitor_mod.MonitorServer):
+            monitor.attach_engine(self)
+            self.monitor = monitor
+        elif isinstance(monitor, int) and monitor is not True:
+            self.monitor = monitor_mod.MonitorServer(
+                self.metrics, self, port=monitor).start()
+        else:
+            raise ValueError(
+                f"monitor must be None / False / port int / "
+                f"MonitorServer, got {monitor!r}")
         self.pcache = llama.init_paged_cache(
             cfg, n_slots, max_len, block_size=block_size,
             n_blocks=n_blocks, device=self.device)
@@ -544,6 +484,11 @@ class ServeEngine:
         self._chunk = _Program(_chunk)
         self._set_row = _Program(_set_row)
         self._spec_tick = _Program(_spec_tick) if self.spec else None
+        # The cost capture runs on fake tensors and calls each program's
+        # plain function, so it adds no signature: taking the sentry
+        # baseline after it proves that on every construction.
+        if self.device_telemetry is not None:
+            self._device_capture_programs(self.device_telemetry)
         # Sentry baseline: all zeros before warm-up.  The first call of
         # each program (0 -> 1) is legitimate; only growth BEYOND one
         # signature per program counts.
@@ -566,6 +511,36 @@ class ServeEngine:
             sizes["spec_tick"] = len(self._spec_tick.signatures)
         return sizes
 
+    def _device_capture_programs(
+            self, dev: "device_telemetry_mod.DeviceTelemetry") -> None:
+        """Count every program's FLOPs and bytes into ``dev`` (see
+        :func:`~horovod_tpu_torch.device_telemetry.count_cost`) on fake
+        copies of the live arguments at serving's own shapes, and hand it
+        the exact parameter and pool bytes for HBM reconciliation."""
+        if dev.device is None:
+            dev.bind(self.device)
+        # made for real first: counted under fake tensors, the cached RoPE
+        # table would be a fake one
+        llama._rope_freqs(self.cfg.rope_theta, self.cfg.head_dim // 2,
+                          self.device)
+        active = self._up(np.zeros((self.n_slots,), np.int64))
+        toks = self._up(np.zeros((1, self.chunk), np.int64))
+        row = self._up(self._trash_row)
+        args = (self.params, self.pcache, self.last_logits)
+        dev.capture("tick", self._tick.fn, *args, active)
+        dev.capture("chunk", self._chunk.fn, *args, toks, 0, self.chunk, 0)
+        dev.capture("set_row", self._set_row.fn, self.pcache, 0, row, 0)
+        if self._spec_tick is not None:
+            drafts = self._up(np.full((self.n_slots, self.draft_k), -1,
+                                      np.int64))
+            dev.capture("spec_tick", self._spec_tick.fn, *args, drafts,
+                        active)
+        param_bytes = sum(x.numel() * x.element_size() for x in
+                          pytree.tree_leaves(self.params))
+        dev.set_model_bytes(
+            param_bytes=param_bytes,
+            kv_total_bytes=self._block_bytes * self.pcache.k.shape[1])
+
     def free_block_count(self) -> int:
         return len(self._free_blocks)
 
@@ -581,8 +556,10 @@ class ServeEngine:
         """Plain-dict snapshot of the engine's registry (counters, gauges,
         the TTFT / TPOT / queue-wait / e2e histograms with p50/p90/p99),
         plus the windowed ``slo`` report, the ``memory`` report, the
-        prefix index digest (cache on) and the ``profile`` breakdown
-        (profiling on)."""
+        prefix index digest (cache on), the ``profile`` breakdown
+        (profiling on), the ``device`` report (telemetry on), and the
+        trailing ``timeseries``, the ``alerts`` and the capacity
+        ``advice`` (sampler on)."""
         mem = self.memory_report()    # refreshes kv.*/mem.* gauges
         snap = self.metrics.snapshot()
         snap["slo"] = self.slo_report()
@@ -591,6 +568,15 @@ class ServeEngine:
             snap["prefix"] = self.prefix.key_digest()
         if self.prof is not None:
             snap["profile"] = self.prof.report()
+        if self.device_telemetry is not None:
+            snap["device"] = self.device_telemetry.report()
+        if self.sampler is not None:
+            # trailing points only; the full rings are /timeseries
+            snap["timeseries"] = self.sampler.report(points=16)
+        if self.alerts is not None:
+            snap["alerts"] = self.alerts.report()
+        if self.advisor is not None:
+            snap["advice"] = self.advisor.recommend()
         return snap
 
     def memory_report(self) -> dict:
@@ -688,6 +674,16 @@ class ServeEngine:
             "  metrics=" + json.dumps(self.metrics_snapshot(),
                                       sort_keys=True),
         ]
+        if self.alerts is not None:
+            arep = self.alerts.report()
+            lines.append(
+                f"  alerts: firing={arep['firing']} "
+                f"pending={arep['pending']} "
+                f"transitions={len(arep['history'])}")
+        if self.advisor is not None:
+            rec = self.advisor.recommend()
+            lines.append(f"  advice: {rec['action']} n={rec['n']} "
+                         f"({rec['reason']})")
         bb = self._block_bytes
         lines.append(
             f"  kv bytes: block={bb} free={self.pool.free_count() * bb}"
@@ -703,6 +699,18 @@ class ServeEngine:
                     f"{p}={rep['phases'][p]['mean_s'] * 1e3:.3f}"
                     for p in rep["phases"] if "." not in p)
                 + f" tick={rep['tick']['mean_s'] * 1e3:.3f}")
+        if self.device_telemetry is not None:
+            drep = self.device_telemetry.report()
+            mfu = drep["win"]["mfu"]
+            lines.append(
+                f"  device: {drep['platform']}/{drep['device_kind']}"
+                f" x{drep['n_devices']}"
+                f" peak_known={drep['peak_flops_known']}"
+                f" mfu={'n/a' if mfu is None else f'{mfu:.4f}'}"
+                f" flops/s={drep['win']['flops_per_s']:.3e}"
+                f" headroom={drep['win']['overlap_headroom_pct']:.1f}%"
+                f" compiles={drep['compiles']}"
+                f" retrace_est_s={drep['retrace_compile_est_s']:.3f}")
         lines += ["  " + ln for ln in self.pool.state_lines()]
         if self.prefix is not None:
             lines.append(
@@ -739,6 +747,9 @@ class ServeEngine:
 
     def _write_row(self, slot: int, row: np.ndarray, length: int) -> None:
         self._set_row(self.pcache, slot, self._up(row), length)
+        if self.device_telemetry is not None:
+            # the slot and length ride as kernel arguments, not copies
+            self.device_telemetry.dispatch("set_row", h2d_bytes=row.nbytes)
 
     # -- queue -------------------------------------------------------------
 
@@ -764,9 +775,6 @@ class ServeEngine:
             raise ValueError(
                 "ServeEngine does not splice prefix caches yet; use "
                 "ContinuousBatcher for prefix requests")
-        if req.trace_ctx is not None:
-            raise NotImplementedError("causal-trace propagation "
-                                      + _NOT_PORTED)
         if req.slo_s is not None and req.slo_s <= 0:
             raise ValueError(f"slo_s must be positive, got {req.slo_s}")
         if L + req.max_new_tokens > self.max_len:
@@ -797,8 +805,10 @@ class ServeEngine:
         and event."""
         rid = self._next_id
         self._next_id += 1
-        self.traces[rid] = Trace(rid=rid, enqueue_ts=time.monotonic(),
+        now = time.monotonic()
+        self.traces[rid] = Trace(rid=rid, enqueue_ts=now,
                                  enqueue_step=self.step_index)
+        self._maybe_open_trace(req, rid, self.traces[rid], now)
         self._slo_targets[rid] = req.slo_s
         self.metrics.counter("serve.requests_submitted").inc()
         self.metrics.event("serve.submit", rid=rid, step=self.step_index,
@@ -807,6 +817,29 @@ class ServeEngine:
         if self.timeline is not None:
             self.timeline.async_start("serving.requests", "REQ", rid)
         return rid
+
+    def _maybe_open_trace(self, req: Request, rid: int, tr: Trace,
+                          now: float) -> None:
+        """Join the tracing plane at submit: adopt a propagated context as
+        parent, or head-sample an engine root keyed on ``serve:<rid>`` (a
+        pure function of the seed and the id, so decisions replay)."""
+        ctx = req.trace_ctx
+        if ctx is not None:
+            sctx = ctx.child("serve.request")
+            tr.parent_span_id = ctx.span_id
+        elif self._trace_fraction > 0.0:
+            sctx = tracing_mod.TraceContext.root(
+                f"serve:{rid}", "serve.request",
+                self._trace_fraction, self._trace_seed)
+            if sctx is None:
+                return
+            tracing_mod.count_sampled(self.metrics)
+        else:
+            return
+        tr.trace_id = sctx.trace_id
+        tr.span_id = sctx.span_id
+        self.tracer.span_open(sctx, "serve.request", now,
+                              parent_id=tr.parent_span_id, rid=rid)
 
     def _reject_submit(self, req: Request, L: int) -> int:
         """Terminal ``REJECTED`` for a request invalid on its face (empty
@@ -1088,7 +1121,10 @@ class ServeEngine:
         res.trace = tr
         self.slo.add(tr, self._slo_targets.pop(rid, None))
         self.metrics.gauge("serve.goodput").set(self.slo.goodput())
-        self.metrics.histogram("serve.e2e_s").observe(tr.e2e_s)
+        self.metrics.histogram("serve.e2e_s").observe(
+            tr.e2e_s, exemplar=tr.trace_id)
+        if tr.trace_id is not None:
+            self._emit_request_spans(tr)
         tpot = tr.tpot_s
         if tpot is not None:
             self.metrics.histogram("serve.tpot_s").observe(tpot)
@@ -1097,6 +1133,49 @@ class ServeEngine:
             self.metrics.counter("serve.tokens_emitted").inc(tr.n_tokens)
         if self.timeline is not None:
             self.timeline.async_end("serving.requests", "REQ", rid)
+
+    def _emit_request_spans(self, tr: Trace) -> None:
+        """A sampled request's spans at its terminal: ``serve.queue`` /
+        ``serve.prefill`` / ``serve.decode`` children tiled from the Trace
+        stamps, then the ``serve.request`` close.  Phases a request never
+        reached are absent."""
+        sctx = tracing_mod.TraceContext(tr.trace_id, tr.span_id)
+        if tr.admit_ts is not None:
+            self.tracer.span(sctx.child("serve.queue"), "serve.queue",
+                             tr.enqueue_ts, tr.admit_ts,
+                             parent_id=tr.span_id, rid=tr.rid,
+                             steps=tr.queue_steps)
+            if tr.first_token_ts is not None:
+                self.tracer.span(
+                    sctx.child("serve.prefill"), "serve.prefill",
+                    tr.admit_ts, tr.first_token_ts,
+                    parent_id=tr.span_id, rid=tr.rid,
+                    chunks=tr.prefill_chunks)
+                self.tracer.span(
+                    sctx.child("serve.decode"), "serve.decode",
+                    tr.first_token_ts, tr.terminal_ts,
+                    parent_id=tr.span_id, rid=tr.rid,
+                    n_tokens=tr.n_tokens, admit_step=tr.admit_step,
+                    terminal_step=tr.terminal_step)
+        self.tracer.span(sctx, "serve.request", tr.enqueue_ts,
+                         tr.terminal_ts, parent_id=tr.parent_span_id,
+                         rid=tr.rid, status=tr.status)
+
+    def _emit_chunk_span(self, tr: Trace, t0: float, t1: float) -> None:
+        """One ``serve.prefill_chunk`` span per prefill window of a sampled
+        request, under its ``serve.prefill`` span, whose id is derived
+        (the same ``child_span_id`` the close uses), so chunks emitted
+        before their parent still join the tree."""
+        prefill_id = tracing_mod.child_span_id(
+            tr.trace_id, tr.span_id, "serve.prefill")
+        ctx = tracing_mod.TraceContext(
+            tr.trace_id,
+            tracing_mod.child_span_id(tr.trace_id, prefill_id,
+                                      "serve.prefill_chunk",
+                                      seq=tr.prefill_chunks))
+        self.tracer.span(ctx, "serve.prefill_chunk", t0, t1,
+                         parent_id=prefill_id, rid=tr.rid,
+                         seq=tr.prefill_chunks)
 
     def _slot_fault(self, slot: int, exc: BaseException) -> None:
         """Quarantine a prefill-window fault to its own request: transient
@@ -1226,6 +1305,8 @@ class ServeEngine:
         prof = self.prof
         if prof is not None:
             prof.begin(self.step_index)
+        if self.device_telemetry is not None:
+            self.device_telemetry.start()
         now = None
         if (any(e.deadline is not None for e in self._queue)
                 or any(s.deadline is not None for s in self._slots
@@ -1283,6 +1364,9 @@ class ServeEngine:
                        else s.base + (w + 1) * self.chunk)
             sel = (s.true_len - 1 - s.base - w * self.chunk
                    if final else 0)
+            tr = self.traces.get(s.request_id)
+            traced = tr is not None and tr.trace_id is not None
+            t_chunk = time.monotonic() if traced else 0.0
             try:
                 self.faults.check("serve.prefill", key=s.request_id)
                 self._chunk(self.params, self.pcache, self.last_logits,
@@ -1291,10 +1375,14 @@ class ServeEngine:
                 self._slot_fault(slot, exc)
                 progress += 1
                 continue
+            if self.device_telemetry is not None:
+                self.device_telemetry.dispatch("chunk",
+                                               h2d_bytes=toks.nbytes)
             s.w_done += 1
             progress += 1
-            tr = self.traces.get(s.request_id)
             if tr is not None:
+                if traced:
+                    self._emit_chunk_span(tr, t_chunk, time.monotonic())
                 tr.prefill_chunks += 1
             if final:
                 s.state = DECODE      # joins this step's tick
@@ -1339,13 +1427,31 @@ class ServeEngine:
                     tok, self.last_logits = self._tick(
                         self.params, self.pcache, self.last_logits, active)
                     readback = tok[None]
+                dev = self.device_telemetry
+                if dev is not None:
+                    dev.dispatch("spec_tick" if spec else "tick",
+                                 h2d_bytes=active_host.nbytes + (
+                                     drafts_host.nbytes if spec else 0))
                 if prof is not None:
                     prof.mark("decode_dispatch")
                 # the one device read of the tick: everything it queued
                 # completes first, so this wait is the device-time share
+                t_sync0 = time.perf_counter()
                 host = readback.cpu().numpy()
                 tok_host = host[0]
                 accept_host = host[1] if spec else None
+                if dev is not None:
+                    # the wait split into the cost model's predicted
+                    # compute and host stall, nested under device_sync
+                    t_sync1 = time.perf_counter()
+                    est, _ = dev.on_sync("spec_tick" if spec else "tick",
+                                         t_sync0, t_sync1,
+                                         d2h_bytes=host.nbytes)
+                    if prof is not None:
+                        prof.add("device_sync.compute_est",
+                                 t_sync0, t_sync0 + est)
+                        prof.add("device_sync.host_stall",
+                                 t_sync0 + est, t_sync1)
                 if prof is not None:
                     prof.mark("device_sync")
             except Exception as exc:
@@ -1435,6 +1541,8 @@ class ServeEngine:
         if grew:
             n = sum(v - max(prev, 1) for prev, v in grew.values())
             self.metrics.counter("serve.retrace").inc(n)
+            if self.device_telemetry is not None:
+                self.device_telemetry.on_retrace(grew)
             self.metrics.event(
                 "serve.retrace", step=self.step_index,
                 programs={k: {"before": prev, "after": v}
@@ -1460,6 +1568,15 @@ class ServeEngine:
                     f"is stuck.  State:\n{self.state_dump()}")
         else:
             self._idle_steps = 0
+        # health plane: sample the registry, then judge the series; both
+        # are a clock read until their cadence elapses
+        if self.sampler is not None:
+            self.sampler.tick()
+            if self.alerts is not None:
+                self.alerts.tick()
+        if self.device_telemetry is not None:
+            self.device_telemetry.on_step(self.step_index)
+        self._last_step_ts = time.monotonic()
         self.step_index += 1
         if prof is not None:
             prof.end()                # closes the bookkeeping phase

@@ -17,7 +17,15 @@ track shows the phases of its collective:
       the fusion copy and collective issue on the engine's stream, and the
       caller's wait in ``synchronize``.
 
-The card's own detail belongs to ``torch.profiler``;
+The serving engine writes to the same file: per-step ``SCHED`` /
+``LIFECYCLE`` / ``SPEC`` / ``PREFIX`` counters (:meth:`Timeline.counter`),
+admit/recycle instants, one async span a request, and, with profiling on,
+each tick's ``phase/*`` spans back-dated to the profiler's own clock reads
+(:meth:`Timeline.async_span`).
+
+The card's own detail belongs to ``torch.profiler``: ``start_timeline(...,
+profiler_dir=...)`` records one over the timeline's window and
+``stop_timeline`` writes its Chrome trace into that directory;
 :func:`trace_annotation` (``torch.profiler.record_function``) names a
 phase in that trace, so that the two can be lined up.
 """
@@ -106,6 +114,14 @@ class Timeline:
         timeline.cc:118-126): a Chrome instant, ``ph: "i"``, thread scope."""
         self._event(tensor_name, activity, "i", tid=0, s="t")
 
+    def counter(self, tensor_name: str, activity: str,
+                values: dict) -> None:
+        """A Chrome counter event (``ph: "C"``): a stacked series on the
+        track, ``values`` mapping series name to number (the serving
+        engine's per-step scheduler and lifecycle totals, speculative
+        decoding's acceptance per round)."""
+        self._event(tensor_name, activity, "C", args=values)
+
     def async_start(self, tensor_name: str, activity: str, aid: int) -> None:
         """Begin an async span (``ph: "b"``), matched by id rather than by
         the track's B/E stack, so it cannot mis-nest with a concurrent
@@ -114,6 +130,21 @@ class Timeline:
 
     def async_end(self, tensor_name: str, activity: str, aid: int) -> None:
         self._event(tensor_name, activity, "e", cat=activity, id=aid, tid=0)
+
+    def async_span(self, tensor_name: str, activity: str, aid: int,
+                   t0: float, t1: float) -> None:
+        """A closed async span with the caller's ``time.perf_counter``
+        stamps: its ``b`` and ``e`` events in one lock pass, back-dated
+        to ``t0`` and ``t1`` (the serving profiler writes a tick's phases
+        after the fact without moving their boundaries)."""
+        with self._lock:
+            if self._closed:
+                return
+            pid = self._pid(tensor_name)
+            for ph, t in (("b", t0), ("e", t1)):
+                self._emit({"name": activity, "ph": ph, "cat": activity,
+                            "id": aid, "ts": (t - self._start) * 1e6,
+                            "pid": pid, "tid": 0})
 
     def close(self) -> None:
         with self._lock:
@@ -154,11 +185,29 @@ def maybe_create(path: str | None,
     return Timeline(path, mark_cycles=mark_cycles)
 
 
-def start_timeline(path: str, mark_cycles: bool = False) -> None:
+def _start_profiler(device: torch.device | None):
+    """A running ``torch.profiler.profile`` of the host and, on the card,
+    of CUDA kernels."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device is not None and device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def start_timeline(path: str, mark_cycles: bool = False,
+                   profiler_dir: str | None = None) -> None:
     """Start recording a timeline mid-run (``hvd.start_timeline``,
     Horovod 0.20).  ``mark_cycles=True`` adds an instant per engine cycle.
     Rank 0 only unless ``path`` holds ``{rank}``; raises if a timeline is
-    already active."""
+    already active.
+
+    ``profiler_dir`` also records a ``torch.profiler`` trace (the host
+    and, on the card, its kernels) for the same window; ``stop_timeline``
+    writes it to ``<profiler_dir>/trace_rank<r>.json``.  A profiler that
+    fails to start (one already running, say) closes the new timeline and
+    raises."""
     from horovod_tpu_torch import basics
 
     st = basics._require_init()
@@ -167,6 +216,15 @@ def start_timeline(path: str, mark_cycles: bool = False) -> None:
             raise ValueError(
                 "a timeline is already active; call stop_timeline() first")
         tl = maybe_create(path, mark_cycles=mark_cycles)
+        if tl is not None and profiler_dir:
+            # before st.timeline is set: a failed start must not leave a
+            # half-open timeline that later starts would refuse
+            try:
+                os.makedirs(profiler_dir, exist_ok=True)
+                st.profiler = (_start_profiler(st.device), profiler_dir)
+            except Exception:
+                tl.close()
+                raise
         st.timeline = tl
         if st.engine is not None and tl is not None:
             st.engine.timeline = tl
@@ -182,10 +240,25 @@ def stop_timeline() -> None:
     st = basics._require_init()
     with st.lock:
         tl, st.timeline = st.timeline, None
+        profiling, st.profiler = st.profiler, None
         if st.engine is not None:
             st.engine.timeline = None
             if st.engine.controller is not None and tl is not None:
                 # Rank 0 buffers arrivals only while a timeline drains them.
                 st.engine.controller.enable_tick_trace(False)
+    if profiling is not None:
+        prof, profiler_dir = profiling
+        try:
+            prof.stop()
+            prof.export_chrome_trace(os.path.join(
+                profiler_dir, f"trace_rank{basics.rank()}.json"))
+        except Exception as e:
+            # a profiler failure must not lose the Chrome timeline below
+            import warnings
+
+            warnings.warn(
+                f"torch profiler stop failed ({type(e).__name__}: {e}); "
+                "the timeline file is still finished",
+                RuntimeWarning, stacklevel=2)
     if tl is not None:
         tl.close()

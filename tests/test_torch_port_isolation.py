@@ -63,9 +63,12 @@ def test_port_modules_import_without_jax():
             "horovod_tpu_torch.optim.eager_optimizer",
             "horovod_tpu_torch.torch_frontend",
             "horovod_tpu_torch.examples.pytorch_mnist",
-            "horovod_tpu_torch.examples.pytorch_synthetic_benchmark"
+            "horovod_tpu_torch.examples.pytorch_synthetic_benchmark",
+            "horovod_tpu_torch.knobs", "horovod_tpu_torch.device_telemetry",
+            "horovod_tpu_torch.tracing", "horovod_tpu_torch.monitor",
+            "horovod_tpu_torch.timeseries", "horovod_tpu_torch.alerts"
             } <= set(mods)
-    assert len(mods) >= 53
+    assert len(mods) >= 59
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"

@@ -3,7 +3,7 @@
 Mirrors tests/test_serving_scheduler.py and the policy cases of
 tests/test_spec_sched.py.  Every case runs the same queue through the
 JAX engine and the port's (``torch_engine_twin.Twin``) and holds them to
-equal tokens, statuses, counters, scheduler events, timeline calls and
+equal tokens, statuses, counters, scheduler events, timeline files and
 block tables after every step; the port's results also equal its own
 solo ``generate``.  The signature pin: each device program sees one
 argument signature through admission, retirement and recycling, and a
@@ -16,8 +16,10 @@ import pytest
 import torch
 
 from horovod_tpu import scheduling as jsched
+from horovod_tpu_torch import device_telemetry as tdevice
 from horovod_tpu_torch import metrics as tmetrics
 from horovod_tpu_torch import scheduling as tsched
+from horovod_tpu_torch import tracing as ttracing
 from horovod_tpu_torch.serving import REJECTED, Request
 from horovod_tpu_torch.serving_scheduler import ServeEngine
 from torch_engine_twin import Twin, solo, tiny_world
@@ -45,7 +47,7 @@ def _mixed():
 @pytest.mark.parametrize("n_blocks", [None, 6])
 def test_engine_matches_jax_engine_and_solo(world, n_blocks):
     """A queue deeper than the pool, recycled slots and blocks, the
-    timeline's calls; with ``n_blocks=6`` an overcommitted pool where
+    timeline files; with ``n_blocks=6`` an overcommitted pool where
     admission waits on the free list and every block comes home."""
     tw = Twin(world, n_slots=2, max_len=16, chunk=4, n_blocks=n_blocks,
               timeline=True)
@@ -138,8 +140,9 @@ def test_chunked_prefill_interleaves_with_decode(world):
 
 def test_submit_validation_and_seams(world):
     """Malformed requests REJECT; caller errors raise as the reference's
-    do; the planes not ported yet and tensor parallelism raise
-    ``NotImplementedError``."""
+    do; the measurement planes take the reference's None / False / True /
+    instance / port values and a request's ``trace_ctx``; tensor
+    parallelism raises ``NotImplementedError``."""
     p, cfg = world.tp, world.tcfg
     eng = ServeEngine(p, cfg, n_slots=1, max_len=16, chunk=6, block_size=4,
                       metrics=tmetrics.MetricsRegistry(event_log=None))
@@ -153,18 +156,32 @@ def test_submit_validation_and_seams(world):
         eng.submit(Request(prompt=[1, 2, 3], max_new_tokens=14))
     with pytest.raises(ValueError, match="prefill"):
         eng.submit(Request(prompt=list(range(1, 14)), max_new_tokens=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP items 7 and 16"):
-        eng.submit(Request(prompt=[1], max_new_tokens=2, trace_ctx=object()))
+    ctx = ttracing.TraceContext.root("client:1", fraction=1.0, seed=0)
+    rid = eng.submit(Request(prompt=[1], max_new_tokens=2, trace_ctx=ctx))
+    assert eng.traces[rid].trace_id == ctx.trace_id
+    assert eng.traces[rid].parent_span_id == ctx.span_id
     with pytest.raises(ValueError, match="trash block"):
         ServeEngine(p, cfg, n_slots=1, max_len=16, chunk=4, n_blocks=3)
+    # None reads the environment: the sampler and alerts are on at 1 s,
+    # the monitor and device telemetry off
+    assert eng.sampler is not None and eng.sampler.sample_s == 1.0
+    assert eng.alerts is not None and eng.advisor is not None
+    assert eng.monitor is None and eng.device_telemetry is None
     for plane in ("monitor", "sampler", "alerts", "device_telemetry"):
-        for ask in (True, 9090):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP items 7 and 16"):
-                ServeEngine(p, cfg, n_slots=1, max_len=16, chunk=4,
-                            **{plane: ask})
-        assert ServeEngine(p, cfg, n_slots=1, max_len=16, chunk=4,
-                           **{plane: False}).monitor is None
+        off = ServeEngine(p, cfg, n_slots=1, max_len=16, chunk=4,
+                          **{plane: False})
+        assert getattr(off, plane) is None
+    on = ServeEngine(p, cfg, n_slots=1, max_len=16, chunk=4, monitor=0,
+                     device_telemetry=True)
+    try:
+        assert on.monitor.port > 0 and on.monitor.engine is on
+        assert isinstance(on.device_telemetry,
+                          tdevice.DeviceTelemetry)
+        assert on.device_telemetry.device == on.device
+    finally:
+        on.monitor.stop()
+    with pytest.raises(ValueError, match="monitor must be"):
+        ServeEngine(p, cfg, n_slots=1, max_len=16, chunk=4, monitor=True)
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
         ServeEngine(p, cfg, n_slots=1, max_len=16, chunk=4, tp_size=2)
 

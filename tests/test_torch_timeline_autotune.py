@@ -290,8 +290,6 @@ def _jax_timeline(path, controller):
 
 def _port_timeline(path, controller):
     from horovod_tpu_torch import basics
-    from horovod_tpu_torch.ops import eager as E
-    from horovod_tpu_torch.ops.collective_ops import Max
     from horovod_tpu_torch.timeline import start_timeline, stop_timeline
 
     env = {"HVD_TORCH_NATIVE_CONTROLLER": "on" if controller else "off"}
@@ -307,16 +305,23 @@ def _port_timeline(path, controller):
                 os.environ[k] = v
     try:
         start_timeline(path)
-        x = torch.zeros(4, 3)
-        ha = E.allreduce_async(x, name="tl.a", average=True)
-        hb = E.allreduce_async(x, name="tl.b", op=Max)
-        hc = E.allgather_async(torch.ones(2, 3), "tl.c", sizes=[2])
-        hd = E.broadcast_async(x, 0, name="tl.d")
-        for h in (ha, hb, hc, hd):
-            E.synchronize(h)
+        _port_ops()
         stop_timeline()
     finally:
         basics.shutdown()
+
+
+def _port_ops():
+    from horovod_tpu_torch.ops import eager as E
+    from horovod_tpu_torch.ops.collective_ops import Max
+
+    x = torch.zeros(4, 3)
+    ha = E.allreduce_async(x, name="tl.a", average=True)
+    hb = E.allreduce_async(x, name="tl.b", op=Max)
+    hc = E.allgather_async(torch.ones(2, 3), "tl.c", sizes=[2])
+    hd = E.broadcast_async(x, 0, name="tl.d")
+    for h in (ha, hb, hc, hd):
+        E.synchronize(h)
 
 
 @pytest.mark.parametrize("controller", [False, True],
@@ -336,6 +341,29 @@ def test_timeline_matches_jax_names_and_phases(tmp_path, controller):
     ends = [e for e in events if e["name"] == "ALLREDUCE" and e["ph"] == "E"]
     assert all(e["args"] == {"dtype": "float32", "shape": [4, 3]}
                for e in ends)
+
+
+def test_horovod_timeline_env_writes_the_same_file(tmp_path, monkeypatch):
+    """``HOROVOD_TIMELINE`` at ``init`` opens the timeline Horovod users
+    turn on; ``shutdown`` finishes it, with the same events as
+    ``start_timeline`` writes for the same ops."""
+    from horovod_tpu_torch import basics
+
+    env_path, api_path = tmp_path / "env.json", tmp_path / "api.json"
+    monkeypatch.setenv("HVD_TORCH_NATIVE_CONTROLLER", "off")
+    monkeypatch.setenv("HOROVOD_TIMELINE", str(env_path))
+    basics.init("cpu")
+    try:
+        _port_ops()
+    finally:
+        basics.shutdown()
+    monkeypatch.delenv("HOROVOD_TIMELINE")
+    _port_timeline(str(api_path), False)
+    got, events = _events(env_path)
+    want, _ = _events(api_path)
+    assert got == want and set(got) == {"tl.a", "tl.b", "tl.c", "tl.d"}
+    assert ("ALLREDUCE", "B") in got["tl.a"]
+    assert events[-1]["name"] == "done"
 
 
 # ------------------------------------------------------------ engine autotune

@@ -8,25 +8,50 @@ lengths; :meth:`Twin.check` then compares results, statuses, errors,
 scheduler events, lifecycle / prefix / spec counters and the program
 signature counts.  The port's own oracle, solo ``generate``, is
 :func:`solo`.
+
+Both engines run with their measurement planes on: every request traced
+(fraction 1.0, one seed), a time-series sampler and the alert rules on
+one virtual clock that each step advances by a second, and, with
+``device_telemetry=True``, the device plane.  ``check`` holds the two to
+equal snapshot key sets, series names, alert states and span forests
+(trace ids, span ids, names, parents, attributes; not timestamps); of the
+device report it compares the keys, the programs and the window's
+dispatch counts, and leaves the measured numbers out.  With ``timeline=True`` each engine writes
+a real Chrome timeline (the JAX package's ``Timeline`` and the port's) and
+``check`` compares the parsed files, timestamps aside.  The reference's
+engine keeps its telemetry plane at ``.device``; the port's at
+``.device_telemetry`` (``.device`` is its torch device).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
+import os
+import tempfile
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from horovod_tpu import alerts as jalerts
 from horovod_tpu import faults as jfaults
 from horovod_tpu import metrics as jmetrics
 from horovod_tpu import serving as js
+from horovod_tpu import timeline as jtimeline
+from horovod_tpu import timeseries as jts
+from horovod_tpu import tracing as jtracing
 from horovod_tpu.models import llama as jl
 from horovod_tpu.serving_scheduler import ServeEngine as JaxEngine
+from horovod_tpu_torch import alerts as talerts
 from horovod_tpu_torch import faults as tfaults
 from horovod_tpu_torch import metrics as tmetrics
 from horovod_tpu_torch import serving as ts
+from horovod_tpu_torch import timeline as ttimeline
+from horovod_tpu_torch import timeseries as tts
+from horovod_tpu_torch import tracing as ttracing
 from horovod_tpu_torch.models import llama as tl
 from horovod_tpu_torch.models.convert import params_from_jax
 from horovod_tpu_torch.serving_scheduler import ServeEngine as PortEngine
@@ -73,21 +98,53 @@ def assert_solo(world: World, prompt, n_new: int, res, max_len: int,
         assert got == want[:len(got)], (got, want)
 
 
-class Recorder:
-    """A timeline stand-in recording every call, for comparing what the
-    two engines tell a timeline."""
+class Clock:
+    """A virtual clock shared by both engines' samplers and alerts."""
 
-    def __init__(self):
-        self.calls: list[tuple] = []
+    def __init__(self, t: float = 0.0):
+        self.t = t
 
-    def __getattr__(self, name):
-        if name.startswith("_"):
-            raise AttributeError(name)
+    def __call__(self) -> float:
+        return self.t
 
-        def record(*args):
-            self.calls.append((name, *[
-                dict(a) if isinstance(a, dict) else a for a in args]))
-        return record
+
+def parse_timeline(path: str) -> list[dict]:
+    """A Chrome timeline's events without their timestamps."""
+    with open(path) as f:
+        return [{k: v for k, v in e.items() if k != "ts"}
+                for e in json.load(f)]
+
+
+def span_forest(tracer) -> dict:
+    """A tracer's closed spans as ``{trace_id: tree}``, each node its span
+    id, name, parent, attributes and children (by span id): everything
+    but the clock."""
+    def node(n):
+        return (n["span_id"], n["name"], n["parent_id"],
+                tuple(sorted(n["attrs"].items())), n["orphan"],
+                tuple(sorted(node(c) for c in n["children"])))
+
+    mod = (ttracing if type(tracer).__module__.startswith(
+        "horovod_tpu_torch") else jtracing)
+    return {tid: sorted(node(r) for r in roots) for tid, roots in
+            mod.build_forest(tracer.recent()).items()}
+
+
+@contextlib.contextmanager
+def _env(values: dict):
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+TRACE_SEED = 7
 
 
 def _result(res) -> tuple:
@@ -103,24 +160,42 @@ class Twin:
     """One JAX and one port ``ServeEngine`` over the same weights, driven
     by the same calls."""
 
-    def __init__(self, world: World, *, policy=None, timeline=False, **kw):
+    def __init__(self, world: World, *, policy=None, timeline=False,
+                 device_telemetry=False, **kw):
         """``policy``: a name for both engines, or a (JAX, port) pair of
         policy objects."""
         jpol, tpol = policy if isinstance(policy, tuple) else (policy, policy)
         self.world = world
         self.jfaults = jfaults.FaultRegistry()
         self.tfaults = tfaults.FaultRegistry()
-        self.jtimeline = Recorder() if timeline else None
-        self.ttimeline = Recorder() if timeline else None
-        self.j = JaxEngine(
-            world.jp, world.jcfg, faults=self.jfaults,
-            metrics=jmetrics.MetricsRegistry(event_log=None),
-            monitor=False, sampler=False, device_telemetry=False,
-            policy=jpol, timeline=self.jtimeline, **kw)
-        self.t = PortEngine(
-            world.tp, world.tcfg, faults=self.tfaults,
-            metrics=tmetrics.MetricsRegistry(event_log=None),
-            policy=tpol, timeline=self.ttimeline, **kw)
+        self.dir = tempfile.mkdtemp(prefix="twin_")
+        self.jtimeline = self.ttimeline = None
+        if timeline:
+            self.jtimeline = jtimeline.Timeline(
+                os.path.join(self.dir, "jax.json"))
+            self.ttimeline = ttimeline.Timeline(
+                os.path.join(self.dir, "port.json"))
+        self.clock = Clock()
+        jreg = jmetrics.MetricsRegistry(event_log=None)
+        treg = tmetrics.MetricsRegistry(event_log=None)
+        jsampler = jts.MetricsSampler(jreg, sample_s=1.0, clock=self.clock)
+        tsampler = tts.MetricsSampler(treg, sample_s=1.0, clock=self.clock)
+        with _env({"HVD_TPU_TRACE_SAMPLE": "1",
+                   "HVD_TPU_TRACE_SEED": str(TRACE_SEED),
+                   "HVD_TORCH_TRACE_SAMPLE": "1",
+                   "HVD_TORCH_TRACE_SEED": str(TRACE_SEED)}):
+            self.j = JaxEngine(
+                world.jp, world.jcfg, faults=self.jfaults, metrics=jreg,
+                monitor=False, sampler=jsampler,
+                alerts=jalerts.AlertManager(jsampler, registry=jreg),
+                device_telemetry=device_telemetry, policy=jpol,
+                timeline=self.jtimeline, **kw)
+            self.t = PortEngine(
+                world.tp, world.tcfg, faults=self.tfaults, metrics=treg,
+                monitor=False, sampler=tsampler,
+                alerts=talerts.AlertManager(tsampler, registry=treg),
+                device_telemetry=device_telemetry, policy=tpol,
+                timeline=self.ttimeline, **kw)
         self.requests: dict[int, dict] = {}
 
     def submit(self, **req) -> int:
@@ -138,6 +213,7 @@ class Twin:
         return got
 
     def step(self) -> dict:
+        self.clock.t += 1.0
         want, got = self.j.step(), self.t.step()
         assert ({k: _result(v) for k, v in got.items()}
                 == {k: _result(v) for k, v in want.items()})
@@ -180,8 +256,12 @@ class Twin:
         assert t.free_block_count() == j.free_block_count()
         assert t.cached_block_count() == j.cached_block_count()
         assert t.pool.state_lines() == j.pool.state_lines()
+        self.check_planes()
         if self.jtimeline is not None:
-            assert self.ttimeline.calls == self.jtimeline.calls
+            self.jtimeline.close()
+            self.ttimeline.close()
+            assert (parse_timeline(self.ttimeline._path)
+                    == parse_timeline(self.jtimeline._path))
         if max_len is not None:
             for rid, res in t.results.items():
                 req = self.requests[rid]
@@ -189,3 +269,34 @@ class Twin:
                     assert_solo(self.world, req["prompt"],
                                 req["max_new_tokens"], res, max_len,
                                 req.get("eos_id"))
+
+    def check_planes(self) -> None:
+        """Equal snapshot key sets, series names, alert states and span
+        forests; of the device report, its shape and dispatch counts."""
+        j, t = self.j, self.t
+        jsnap, tsnap = j.metrics_snapshot(), t.metrics_snapshot()
+        assert set(tsnap) == set(jsnap)
+        for sec in ("counters", "gauges", "histograms"):
+            assert set(tsnap[sec]) == set(jsnap[sec]), sec
+        assert tsnap["slo"]["statuses"] == jsnap["slo"]["statuses"]
+        for tier in ("raw", "10s", "60s"):
+            assert (set(tsnap["timeseries"]["tiers"][tier]["series"])
+                    == set(jsnap["timeseries"]["tiers"][tier]["series"]))
+
+        def states(am):
+            return {n: (s["state"], s["fired"], s["resolved"], s["no_data"])
+                    for n, s in am.states().items()}
+
+        assert states(t.alerts) == states(j.alerts)
+        if "device" in jsnap:
+            jdev, tdev = jsnap["device"], tsnap["device"]
+            assert set(tdev) == set(jdev)
+            assert set(tdev["programs"]) == set(jdev["programs"])
+            assert set(tdev["win"]) == set(jdev["win"])
+            assert tdev["win"]["n"] == jdev["win"]["n"] > 0
+            assert (tdev["win"]["dispatches"]
+                    == jdev["win"]["dispatches"])
+        assert tsnap["advice"]["action"] == jsnap["advice"]["action"]
+        assert span_forest(t.tracer) == span_forest(j.tracer)
+        assert (tsnap["counters"]["trace.spans"]
+                == jsnap["counters"]["trace.spans"] > 0)
