@@ -64,6 +64,25 @@ Phases, one JSON line each; any failure exits non-zero before the result:
    (0, 1) and equal to the window's FLOPs / s / peak, the HBM gauges equal
    to the allocator's, every tick's sync split summing to its wait, one
    span tree a request; served tokens/s off and on (medians of two).
+   ``serve router`` (the fleet's front door, on the same weights): two
+   ``LocalReplica`` engines of the engine's configuration (prefix cache
+   on, the first with device telemetry) share one ``params`` behind a
+   ``RouterServer`` on 127.0.0.1 with ``prefix_affinity``; 16 requests in
+   four shared-prefix families a wave go through the HTTP door at once,
+   and a solo ``ServeEngine`` serves the same waves, in turns (solo,
+   fleet; fleet, solo): tokens equal bit for bit, fleet and solo tokens/s.
+   Then the ``serve.router`` fault kills replica 0 mid-wave (tokens equal,
+   ``router.failovers`` ≥ 1), ``ReplicaSupervisor`` respawns it with
+   ``clone_engine`` (the same weight tensors, one more KV pool of memory)
+   and the clone serves a further wave; a journaled router
+   (``HVD_TORCH_ROUTER_JOURNAL`` under ``$TMPDIR``) stopped mid-flight is
+   replayed by a new one with equal tokens, and a repeated idempotency key
+   is answered from the journal; last ``measure_router_fleet`` (affinity's
+   hit rate above round robin's).  ``route_decision_s`` and the journal
+   append time p50/p99, the fleet ``/device`` summary before and after the
+   respawn, the phase's peak memory, and the flash launches of the fleet's
+   own waves, counted from 0 around each wave: none, because the engine's
+   paged programs attend with plain einsums, as the reference's do.
 7. ``train``: Llama-3-8B width cut to ``--train-layers`` (default 8), remat,
    flash attention, f32 master weights and bf16 compute, through the port's
    ``basics.init`` (NCCL, a world of one), ``broadcast_parameters``,
@@ -146,6 +165,21 @@ Phases, one JSON line each; any failure exits non-zero before the result:
     route's host time split into forward, backward (with the hooks),
     synchronize, step and the wait for the card, with the hooks', the
     engine enqueue's and the cycle thread's flushes' own time.
+    ``train elastic`` (right after ``train eager``): ViT-B/16 as phase
+    10 under the hook-driven ``DistributedOptimizer`` inside
+    ``elastic.run`` with a ``TorchState``, 8 steps committing every 2:
+    once uninterrupted (in-memory commits), once with durable commits
+    under ``$TMPDIR`` and the live engine's shutdown flag set before step
+    5, so that the step's first gradient hook raises
+    ``HorovodInternalError``; ``run`` reinitialises NCCL at a world of
+    one, restores the step-4 commit and replays.  The parameters and the
+    optimizer state end bit-equal to the uninterrupted run's (cuDNN held
+    to deterministic algorithms), and a fresh ``TorchState`` over fresh
+    objects restores the durable commit after a full ``shutdown()`` and
+    ``init()``; commit bytes and seconds, restore and reinit seconds.
+    ``train hierarchical``: ``HOROVOD_HIERARCHICAL_ALLREDUCE=1`` at a
+    world of one warns and reduces exactly as the flat route (the
+    two-level route needs two ranks, and NCCL refuses two on one card).
 14. ``fit mnist`` (BASELINE config 1): ``MnistConvNet`` through ``fit``,
     ``ShardedLoader`` over ``synthetic_mnist`` and the broadcast,
     metric-average, warm-up and checkpoint callbacks, two epochs; the loss
@@ -3051,6 +3085,587 @@ def phase_train_eager(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- the fleet
+
+ROUTER_SUFFIXES = (1, 100, 255, 300)
+ROUTER_BUDGET = 16
+ROUTER_FAIL_ON_STEP = 4        # replica0 dies at its 4th step of the wave
+
+
+def _router_requests(cfg, seed: int, n: int = 16, budget: int = ROUTER_BUDGET):
+    """``n`` requests in four shared-prefix families: a random prefix of two
+    blocks each (512 tokens), then a suffix of each length in
+    ``ROUTER_SUFFIXES``, all with ``budget`` new tokens."""
+    import numpy as np
+
+    from horovod_tpu_torch.serving import Request
+
+    rng = np.random.RandomState(seed + 7)
+    fams = [rng.randint(0, cfg.vocab_size, 2 * ENGINE["chunk"]).tolist()
+            for _ in range(4)]
+    return [Request(prompt=fams[i % 4] + rng.randint(
+        0, cfg.vocab_size, ROUTER_SUFFIXES[(i // 4) % 4]).tolist(),
+        max_new_tokens=budget) for i in range(n)]
+
+
+def _fresh(reqs):
+    """New ``Request`` objects with the same prompts and budgets (a router
+    writes its trace context into the object it routes)."""
+    from horovod_tpu_torch.serving import Request
+
+    return [Request(prompt=list(r.prompt), max_new_tokens=r.max_new_tokens)
+            for r in reqs]
+
+
+def _post_all(base: str, reqs, keys=None) -> tuple[list, float]:
+    """POST every request to ``base``'s ``/v1/generate`` at once, one client
+    thread each; returns the reply bodies in order and the wall seconds."""
+    import threading
+    import urllib.request
+
+    out: list = [None] * len(reqs)
+    errors: list = []
+
+    def one(i, r):
+        payload = {"prompt": list(r.prompt),
+                   "max_new_tokens": r.max_new_tokens}
+        if keys is not None:
+            payload["idempotency_key"] = keys[i]
+        try:
+            req = urllib.request.Request(
+                base + "/v1/generate", data=json.dumps(payload).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                out[i] = json.loads(resp.read())
+        except Exception as e:      # reported below, with the request
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=one, args=(i, r), daemon=True)
+               for i, r in enumerate(reqs)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors or any(o is None for o in out):
+        raise PhaseError(f"front door: {errors or 'a client never returned'}")
+    return out, wall
+
+
+def _tokens_of(bodies) -> list:
+    return [list(b["tokens"]) for b in bodies]
+
+
+def _solo_run(eng, reqs) -> tuple[list, float]:
+    sync()
+    t0 = time.perf_counter()
+    res = eng.run(_fresh(reqs))
+    sync()
+    return [[int(t) for t in r] for r in res], time.perf_counter() - t0
+
+
+def _hist(reg, name: str) -> dict:
+    h = reg.snapshot()["histograms"][name]
+    return {k: h[k] for k in ("count", "p50", "p99", "max")}
+
+
+def phase_router(cfg, params, seed: int) -> dict:
+    """The fleet's front door at Llama-3-8B width on the serving phases'
+    weights (``router.py``, ``supervisor.py``): two ``LocalReplica``
+    engines (8 slots × 2048, prefix cache; the first with device telemetry)
+    share one ``params`` behind a ``RouterServer`` on 127.0.0.1 with
+    ``prefix_affinity``, against one solo ``ServeEngine`` of the same
+    configuration, in turns (solo, fleet on wave A; fleet, solo on wave B;
+    16 requests in four shared-prefix families each, posted at once through
+    the HTTP front door).  Then (C) the ``serve.router`` fault armed on
+    replica 0 mid-wave, (D) ``ReplicaSupervisor`` respawning it with
+    ``clone_engine`` (the same weight tensors; one more KV pool of device
+    memory) and the clone serving a further wave, (E) a journaled router
+    (``HVD_TORCH_ROUTER_JOURNAL`` under ``$TMPDIR``) stopped mid-flight and
+    replayed by a new one, a repeated idempotency key answered from the
+    journal, and (F) ``measure_router_fleet`` (affinity against round
+    robin).  Every wave's tokens equal the solo engine's bit for bit."""
+    import tempfile
+
+    import torch
+
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.faults import FaultRegistry
+    from horovod_tpu_torch.parallel import flash_attention as fa
+    from horovod_tpu_torch.router import RouterServer, measure_router_fleet
+    from horovod_tpu_torch.serving_scheduler import ServeEngine
+    from horovod_tpu_torch.supervisor import ReplicaSupervisor
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opts = dict(ENGINE, prefix_cache=True, sampler=False)
+
+    def engine(**kw):
+        return ServeEngine(params, cfg, metrics=metrics.MetricsRegistry(
+            event_log=None), **opts, **kw)
+
+    solo = engine()
+    replicas = [engine(device_telemetry=True), engine()]
+    reg = metrics.MetricsRegistry(event_log=None)
+    faults = FaultRegistry()
+    router = RouterServer(replicas, policy="prefix_affinity", registry=reg,
+                          faults=faults).start()
+    base = f"http://{router.host}:{router.port}"
+    checks: dict = {}
+    out: dict = {"engine": ENGINE, "n_layers": cfg.n_layers,
+                 "policy": "prefix_affinity", "replicas": 2}
+    sup = None
+    # The flash kernels' launches of the fleet's own waves: the counts are
+    # set to 0 just before each wave goes through the front door and read
+    # just after it, so no solo, oracle or journal run is counted.
+    fleet_launches = {64: 0, 128: 0}
+
+    def fleet_wave(reqs):
+        fa.launches = 0
+        fa.fwd_launches_by_dim.update({64: 0, 128: 0})
+        fa.dq_launches = fa.dkv_launches = 0
+        bodies, wall = _post_all(base, reqs)
+        for d in fleet_launches:
+            fleet_launches[d] += fa.fwd_launches_by_dim[d]
+        return bodies, wall
+    try:
+        # A and B: the fleet against one engine, in turns
+        waves = {w: _router_requests(cfg, seed + i)
+                 for i, w in enumerate("ABCD")}
+        turns = []
+        solo_tokens = {}
+        fleet_tokens = {}
+        for who, w in (("solo", "A"), ("fleet", "A"), ("fleet", "B"),
+                       ("solo", "B")):
+            if who == "solo":
+                toks, wall = _solo_run(solo, waves[w])
+                solo_tokens[w] = toks
+            else:
+                bodies, wall = fleet_wave(waves[w])
+                toks = _tokens_of(bodies)
+                fleet_tokens[w] = toks
+                checks[f"wave_{w}_all_ok"] = all(b["status"] == "OK"
+                                                 for b in bodies)
+            turns.append({"who": who, "wave": w, "wall_s": wall,
+                          "tokens_per_s": sum(map(len, toks)) / wall})
+        for w in "AB":
+            checks[f"wave_{w}_tokens_equal_solo"] = (fleet_tokens[w]
+                                                     == solo_tokens[w])
+        out["turns"] = turns
+        out["fleet_tokens_per_s"] = statistics.median(
+            t["tokens_per_s"] for t in turns if t["who"] == "fleet")
+        out["solo_tokens_per_s"] = statistics.median(
+            t["tokens_per_s"] for t in turns if t["who"] == "solo")
+        out["greedy_consistency_A"] = _greedy_consistency(
+            params, cfg, [r.prompt for r in waves["A"]], fleet_tokens["A"])
+        checks["greedy_consistency_A"] = out["greedy_consistency_A"]["ok"]
+        out["routed_after_AB"] = {r["name"]: r["routed"]
+                                  for r in router.replicas_report()}
+        checks["both_replicas_served"] = all(
+            v > 0 for v in out["routed_after_AB"].values())
+        dev = router.device_report()
+        out["device_report_summary"] = dev["summary"]
+        checks["fleet_device_view"] = (
+            dev["summary"]["n_reporting"] == 1
+            and dev["without_telemetry"] == ["replica1"])
+
+        # C: replica 0 dies mid-wave; its requests replay on replica 1
+        faults.inject("serve.router", key="replica0",
+                      on_hit=ROUTER_FAIL_ON_STEP, permanent=True)
+        bodies, wall = fleet_wave(waves["C"])
+        solo_tokens["C"], _ = _solo_run(solo, waves["C"])
+        counters = reg.snapshot()["counters"]
+        out["failover"] = {"wall_s": wall,
+                           "failovers": counters["router.failovers"],
+                           "replica_deaths": counters["router.replica_deaths"],
+                           "hops": sum(b["failovers"] for b in bodies)}
+        checks["wave_C_all_ok"] = all(b["status"] == "OK" for b in bodies)
+        checks["wave_C_tokens_equal_solo"] = (_tokens_of(bodies)
+                                              == solo_tokens["C"])
+        checks["failovers"] = counters["router.failovers"] >= 1
+        checks["one_replica_death"] = counters["router.replica_deaths"] == 1
+        faults.clear()
+
+        # D: the supervisor respawns replica 0 through clone_engine
+        dead = router.replicas[0].engine
+        pool = dead.memory_report()["kv"]["total_bytes"]
+        sync()
+        before = torch.cuda.memory_allocated()
+        sup = ReplicaSupervisor(router, backoff_s=600.0, warm_prefixes=4)
+        deadline = time.monotonic() + 300
+        while router.health()[1]["healthy"] < 2:
+            router.poll_now()
+            if time.monotonic() > deadline:
+                raise PhaseError("serve router: replica0 never respawned")
+            time.sleep(0.05)
+        sync()
+        delta = torch.cuda.memory_allocated() - before
+        clone = router.replicas[0].engine
+        emb = params["embed"]
+        out["respawn"] = {
+            "memory_delta_bytes": delta, "pool_bytes": pool,
+            "delta_over_pool": delta / pool,
+            "warm_prefixes": reg.snapshot()["counters"][
+                "supervisor.warm_prefixes"],
+            "state": sup.state()["replica0"]}
+        checks["clone_is_new_engine"] = clone is not dead
+        checks["clone_shares_weights"] = (
+            clone.params is dead.params
+            and clone.params["embed"].data_ptr() == emb.data_ptr())
+        checks["clone_same_pool_geometry"] = (clone.pcache.k.shape
+                                              == dead.pcache.k.shape)
+        checks["respawn_costs_one_pool"] = 0.9 * pool <= delta <= 1.1 * pool
+        del dead
+        routed0 = {r["name"]: r["routed"] for r in router.replicas_report()}
+        steps0 = clone.step_index
+        bodies, wall = fleet_wave(waves["D"])
+        solo_tokens["D"], _ = _solo_run(solo, waves["D"])
+        routed1 = {r["name"]: r["routed"] for r in router.replicas_report()}
+        checks["wave_D_all_ok"] = all(b["status"] == "OK" for b in bodies)
+        checks["wave_D_tokens_equal_solo"] = (_tokens_of(bodies)
+                                              == solo_tokens["D"])
+        checks["clone_served"] = (routed1["replica0"] > routed0["replica0"]
+                                  and clone.step_index > steps0)
+        # the clone keeps replica 0's device plane: the fleet's /device
+        # view still has one reporting replica after the respawn
+        dev = router.device_report()
+        out["device_report_summary_after_respawn"] = dev["summary"]
+        checks["fleet_device_view_after_respawn"] = (
+            clone.device_telemetry is not None
+            and dev["summary"]["n_reporting"] == 1
+            and dev["without_telemetry"] == ["replica1"])
+        out["route_decision_s"] = _hist(reg, "router.route_decision_s")
+        out["e2e_s"] = _hist(reg, "router.e2e_s")
+        out["health"] = router.health()[1]
+    finally:
+        router.stop()
+
+    # E: a journaled router stopped mid-flight, replayed by a new one
+    jdir = tempfile.mkdtemp(prefix="hvd_router_journal_")
+    jpath = os.path.join(jdir, "journal.jsonl")
+    jreqs = _router_requests(cfg, seed + 4, n=4)
+    jreqs[0].max_new_tokens = 1          # finishes before the stop
+    keys = [f"journal-{i}" for i in range(len(jreqs))]
+    jsolo, _ = _solo_run(solo, jreqs)
+    with _env({"HVD_TORCH_ROUTER_JOURNAL": jpath}):
+        j1 = RouterServer([replicas[1]], policy="round_robin",
+                          registry=metrics.MetricsRegistry(event_log=None),
+                          sampler=False)
+    try:
+        rids = [j1.route(r, idempotency_key=k)
+                for r, k in zip(_fresh(jreqs), keys)]
+        first = j1.result(rids[0], timeout=600)
+        unfinished = sum(1 for rid in rids[1:]
+                         if j1.result(rid, timeout=0) is None)
+    finally:
+        j1.stop(drain_s=0.0)
+    j1_append = _hist(j1.metrics, "router.journal_append_s")
+    with _env({"HVD_TORCH_ROUTER_JOURNAL": jpath}):
+        j2 = RouterServer([clone], policy="round_robin",
+                          registry=metrics.MetricsRegistry(event_log=None),
+                          sampler=False).start()
+    try:
+        again = [j2.route(r, idempotency_key=k)
+                 for r, k in zip(_fresh(jreqs), keys)]
+        jtoks = [[int(t) for t in j2.result(rid, timeout=600)]
+                 for rid in again]
+        routed = j2.metrics.snapshot()["counters"][
+            "router.routed.round_robin"]
+        repeat = j2.result(j2.route(_fresh(jreqs)[1],
+                                    idempotency_key=keys[1]), timeout=60)
+        c2 = j2.metrics.snapshot()["counters"]
+        out["journal"] = {
+            "stopped_with_unfinished": unfinished,
+            "replays": c2["router.journal_replays"],
+            "dedups": c2["router.journal_dedups"],
+            "append_s_incarnation_1": j1_append,
+            "append_s_incarnation_2": _hist(j2.metrics,
+                                            "router.journal_append_s"),
+            "bytes": os.path.getsize(jpath)}
+        checks["journal_first_finished_before_stop"] = (
+            first is not None and first.status == "OK")
+        checks["journal_stopped_mid_flight"] = unfinished >= 1
+        checks["journal_replayed"] = (c2["router.journal_replays"]
+                                      == unfinished)
+        checks["journal_tokens_equal_solo"] = jtoks == jsolo
+        checks["journal_repeat_from_journal"] = (
+            [int(t) for t in repeat] == jsolo[1]
+            and c2["router.routed.round_robin"] == routed
+            and c2["router.journal_dedups"] == len(keys) + 1)
+    finally:
+        j2.stop()
+    del replicas, clone, solo
+    torch.cuda.empty_cache()
+
+    # F: affinity against round robin at full width, small pools
+    bench = measure_router_fleet(params, cfg, n_replicas=2, n_groups=3,
+                                 waves=4, prefix_blocks=2, suffix_len=4,
+                                 max_new_tokens=8, n_slots=4, chunk=64)
+    out["measure_router_fleet"] = bench
+    checks["affinity_hit_rate_above_round_robin"] = (
+        bench["serve_router_hit_rate_prefix_affinity"]
+        > bench["serve_router_hit_rate_round_robin"])
+    # The replicas' programs (the paged chunk and tick) attend with plain
+    # einsums over the gathered pool, as the reference's ``_paged_attend``
+    # does, so the fleet's waves launch no flash kernel: the check holds
+    # the count to that, and a route through a kernel would show here.
+    out["launches"] = {"flash_fwd": sum(fleet_launches.values()),
+                       "flash_fwd_d128": fleet_launches[128],
+                       "flash_fwd_d64": fleet_launches[64],
+                       "window": "the fleet's waves A-D through the front "
+                                 "door only"}
+    checks["fleet_flash_launches_as_the_paged_path_has"] = (
+        sum(fleet_launches.values()) == 0)
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    emit("serve router", **out)
+    if not out["ok"]:
+        raise PhaseError("serve router failed its checks: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return out
+
+
+# ------------------------------------------------------- elastic training
+
+ELASTIC_STEPS = 8
+ELASTIC_FAIL_AT = 5            # the engine dies before this step's backward
+ELASTIC_COMMIT_EVERY = 2
+
+
+def _elastic_run(model, opt, batch, ckpt_dir, fail_at: int | None) -> dict:
+    """``ELASTIC_STEPS`` steps of the hook route inside ``elastic.run`` with
+    a ``TorchState`` committing every ``ELASTIC_COMMIT_EVERY`` steps
+    (advance-then-commit).  ``fail_at``: on the first entry, the live
+    engine's ``_shutdown`` flag is set before that step, so the step's first
+    gradient hook raises ``HorovodInternalError`` at the engine's own site.
+    Commits, restores and the reinit are timed."""
+    from horovod_tpu_torch import elastic, torch_elastic
+    from horovod_tpu_torch import torch_frontend as F
+    from horovod_tpu_torch.ops import eager as E
+
+    times = {"commit_s": [], "restore_s": [], "reinit_s": []}
+
+    class _Timed(torch_elastic.TorchState):
+        def commit(self):
+            sync()
+            t0 = time.perf_counter()
+            super().commit()
+            times["commit_s"].append(time.perf_counter() - t0)
+
+        def restore(self):
+            t0 = time.perf_counter()
+            super().restore()
+            sync()
+            times["restore_s"].append(time.perf_counter() - t0)
+
+    real_reinit = elastic._reinit
+
+    def timed_reinit():
+        t0 = time.perf_counter()
+        real_reinit()
+        times["reinit_s"].append(time.perf_counter() - t0)
+
+    dopt = F.DistributedOptimizer(opt, model.named_parameters())
+    state = _Timed(model=model, optimizer=opt, ckpt_dir=ckpt_dir, step=0)
+    entries: list = []
+    losses: list = []
+
+    @elastic.run
+    def train(st):
+        entries.append(st.step)
+        while st.step < ELASTIC_STEPS:
+            if fail_at is not None and st.step == fail_at \
+                    and len(entries) == 1:
+                E._engine()._shutdown.set()
+            dopt.zero_grad()
+            loss = _cross_entropy(model, batch)
+            loss.backward()
+            dopt.step()
+            losses.append(float(loss.detach()))
+            st.step += 1
+            if st.step % ELASTIC_COMMIT_EVERY == 0:
+                st.commit()
+
+    elastic._reinit = timed_reinit
+    try:
+        train(state)
+    finally:
+        elastic._reinit = real_reinit
+        dopt.remove_hooks()
+    sync()
+    return {"entries": entries, "losses": losses, "times": times,
+            "commit_step": state.commit_step}
+
+
+def phase_train_elastic(seed: int) -> dict:
+    """Elastic training (``elastic.py``, ``torch_elastic.py``) on ViT-B/16
+    at full size (bf16, flash: the D = 64 kernels), batch 64, AdamW, under
+    the hook-driven ``torch_frontend.DistributedOptimizer`` at a world of
+    one on NCCL.  An uninterrupted run of ``ELASTIC_STEPS`` steps with
+    in-memory commits, then the same steps from the same weights with
+    durable commits under ``$TMPDIR``, where the engine fails before step
+    ``ELASTIC_FAIL_AT``: ``run`` reinitialises NCCL at a world of one,
+    restores the step-4 commit and replays.  The final parameters and
+    optimizer state must equal the uninterrupted run's bit for bit (cuDNN
+    held to deterministic algorithms, as ``train eager``'s hook-versus-sync
+    check is).  Then a fresh ``TorchState`` over a fresh model restores
+    the durable commit after a full ``shutdown()`` and ``init()``."""
+    import tempfile
+
+    import torch
+
+    from horovod_tpu_torch import basics, torch_elastic
+    from horovod_tpu_torch.models.vit import ViT_B16
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    def make(s):
+        model = ViT_B16(dtype=torch.bfloat16, attn_impl="flash", device=DEV,
+                        seed=s)
+        return model, torch.optim.AdamW(model.parameters(), lr=1e-3,
+                                        weight_decay=1e-4, fused=True)
+
+    batch = _vision_batch(seed + 6, 224)
+    ckpt = tempfile.mkdtemp(prefix="hvd_elastic_")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        basics.init()
+        model, opt = make(seed)
+        clean = _elastic_run(model, opt, batch, None, None)
+        want_model = {k: v.clone() for k, v in model.state_dict().items()}
+        want_opt = opt.state_dict()
+        del model, opt
+        model, opt = make(seed)
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        hurt = _elastic_run(model, opt, batch, ckpt, ELASTIC_FAIL_AT)
+        launches = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+                    "flash_bwd_dkv": fa.dkv_launches}
+        got_opt = opt.state_dict()
+        files = sorted(os.listdir(ckpt))
+        newest = os.path.join(ckpt, f"step_{hurt['commit_step']}.pt")
+        commit_bytes = os.path.getsize(newest)
+        # a gang relaunch in one process: full shutdown, init, fresh objects
+        basics.shutdown()
+        basics.init()
+        fresh_model, fresh_opt = make(seed + 1)
+        fresh = torch_elastic.TorchState(model=fresh_model,
+                                         optimizer=fresh_opt, ckpt_dir=ckpt,
+                                         step=0)
+        t0 = time.perf_counter()
+        fresh.restore()
+        sync()
+        relaunch_restore_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+    def opt_equal(a, b):
+        return a["param_groups"] == b["param_groups"] and all(
+            torch.equal(a["state"][i][k], b["state"][i][k])
+            for i in a["state"] for k in a["state"][i])
+
+    depth = len(model.blocks)
+    steps_run = len(hurt["losses"])
+    checks = {
+        "clean_single_entry": clean["entries"] == [0],
+        "replayed_from_step_4": hurt["entries"] == [0, 4],
+        "one_reinit": len(hurt["times"]["reinit_s"]) == 1,
+        "params_bit_equal_uninterrupted": all(
+            torch.equal(v, want_model[k])
+            for k, v in model.state_dict().items()),
+        "optimizer_bit_equal_uninterrupted": opt_equal(got_opt, want_opt),
+        # steps 0-4, then the replay of steps 4-7 from the step-4 commit
+        "losses_replay_equal": hurt["losses"]
+        == clean["losses"][:ELASTIC_FAIL_AT] + clean["losses"][4:],
+        "launches_every_step": all(
+            v >= steps_run * depth for v in launches.values()),
+        "durable_commits": files == [f"step_{i}.pt" for i in (1, 2, 3, 4)],
+        "relaunch_restores_step": (fresh.step, fresh.commit_step)
+        == (ELASTIC_STEPS, ELASTIC_STEPS // ELASTIC_COMMIT_EVERY),
+        "relaunch_params_bit_equal": all(
+            torch.equal(v, want_model[k])
+            for k, v in fresh_model.state_dict().items()),
+        "relaunch_optimizer_bit_equal": opt_equal(fresh_opt.state_dict(),
+                                                  want_opt),
+        "world_of_one_on_the_card": basics.size() == 1
+        and basics.device().type == "cuda",
+    }
+    out = {"model": "ViT-B/16", "batch": VISION_BATCH, "steps": ELASTIC_STEPS,
+           "fail_at": ELASTIC_FAIL_AT, "commit_every": ELASTIC_COMMIT_EVERY,
+           "entries": hurt["entries"], "steps_run": steps_run,
+           "commit_bytes": commit_bytes,
+           "commit_s": hurt["times"]["commit_s"],
+           "commit_s_in_memory": clean["times"]["commit_s"],
+           "restore_s": hurt["times"]["restore_s"],
+           "reinit_s": hurt["times"]["reinit_s"],
+           "relaunch_restore_s": relaunch_restore_s,
+           "launches": launches, "launches_total": launches,
+           "bit_equality_under": "torch.backends.cudnn.deterministic=True",
+           "checks": checks, "ok": all(checks.values())}
+    for f in files:
+        os.remove(os.path.join(ckpt, f))
+    del model, opt, fresh_model, fresh_opt
+    torch.cuda.empty_cache()
+    emit("train elastic", **out)
+    if not out["ok"]:
+        raise PhaseError("train elastic failed its checks: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return out
+
+
+def phase_train_hierarchical(seed: int) -> dict:
+    """``HOROVOD_HIERARCHICAL_ALLREDUCE=1`` at a world of one: the engine
+    warns that the world does not factor into nodes and reduces exactly as
+    the flat route does (fused buckets, Sum and Average, f32, bf16, int64).
+    The two-level route itself cannot run on one card: NCCL refuses two
+    ranks on one GPU; the gloo worlds of ``tests/test_torch_hierarchical.py``
+    hold it."""
+    import contextlib as ctx
+    import io
+
+    import torch
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.ops import collective_ops as C
+    from horovod_tpu_torch.ops import eager as E
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    f32 = [torch.randn(n, device=DEV, generator=g) for n in (5, 4099, 77)]
+    buckets = [f32, [t.to(torch.bfloat16) for t in f32],
+               [torch.arange(9, device=DEV, dtype=torch.int64)]]
+
+    def reduce_all():
+        return [t for op in (C.Sum, C.Average) for b in buckets
+                for t in E.grouped_allreduce_eager(b, op=op)]
+
+    basics.shutdown()
+    err = io.StringIO()
+    with _env({"HOROVOD_HIERARCHICAL_ALLREDUCE": "1"}):
+        basics.init()
+        with ctx.redirect_stderr(err):
+            eng = E._engine()
+        hier = reduce_all()
+    basics.shutdown()
+    basics.init()
+    flat = reduce_all()
+    checks = {"warned": "HOROVOD_HIERARCHICAL_ALLREDUCE=1 ignored"
+              in err.getvalue(),
+              "flat_route": eng.local_group is None and eng.hier_local == 1,
+              "equal_to_flat": all(torch.equal(a, b)
+                                   for a, b in zip(hier, flat))}
+    out = {"world_size": basics.size(), "warning": err.getvalue().strip(),
+           "two_level_route": "not run: NCCL refuses two ranks on one GPU; "
+                              "held on 4-rank gloo worlds by "
+                              "tests/test_torch_hierarchical.py",
+           "checks": checks, "ok": all(checks.values())}
+    emit("train hierarchical", **out)
+    if not out["ok"]:
+        raise PhaseError("train hierarchical failed its checks: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-layers", type=int, default=32,
@@ -3103,6 +3718,8 @@ def main(argv=None) -> int:
         spec = phase_speculative(cfg, params, args.seed)
         phase = "serve engine"
         phase_engine(cfg, params, args.seed)
+        phase = "serve router"
+        router = phase_router(cfg, params, args.seed)
         del params
         torch.cuda.empty_cache()
         phase = "train"
@@ -3115,6 +3732,10 @@ def main(argv=None) -> int:
         vit = phase_vit_b16(args.seed, tuple(args.vit_ab))
         phase = "train eager"
         eager = phase_train_eager(args.seed)
+        phase = "train elastic"
+        elastic = phase_train_elastic(args.seed)
+        phase = "train hierarchical"
+        phase_train_hierarchical(args.seed)
         phase = "train vgg16"
         phase_vgg16(args.seed)
         phase = "train inception_v3"
@@ -3134,7 +3755,7 @@ def main(argv=None) -> int:
         basics.shutdown()
     print(json.dumps({"kernels": _kernel_rows(build, kern, kern_bwd, gen, bat,
                                               spec, train, kern64, vit,
-                                              eager)}),
+                                              eager, router, elastic)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
@@ -3154,11 +3775,12 @@ def _ptx(build, kernel: str) -> dict:
 
 
 def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
-                 vit, eager) -> list[dict]:
+                 vit, eager, router, elastic) -> list[dict]:
     """One row per kernel and head dim: its launches on the main paths
-    (D = 128: serving's generate and batcher, the Llama train steps; D =
-    64: the ViT-B/16 train steps, synchronous and under the hook-driven
-    optimizer of ``train eager``), its largest error over the bf16 cases
+    (D = 128: serving's generate, batcher and the router's fleet, the Llama
+    train steps; D = 64: the ViT-B/16 train steps, synchronous, under the
+    hook-driven optimizer of ``train eager`` and inside ``elastic.run`` in
+    ``train elastic``), its largest error over the bf16 cases
     and its times at its main shape (the generate prefill for the forward,
     the Llama training shape for the backward pair, the ViT-B/16 shape at
     D = 64).  ``ms`` is device time; ``prev_ms`` the earlier mma.sync kernel
@@ -3179,6 +3801,7 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
         "replaces": f"{src}:62",
         "launches": (gen["launches"] + bat["launches"]
                      + spec["launches"][128]
+                     + router["launches"]["flash_fwd_d128"]
                      + train["launches"]["flash_fwd"]),
         "max_abs_err": max(c["o_max_abs_err"] for c in kern["cases"]
                            if c["dtype"] == "bf16"),
@@ -3242,6 +3865,8 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
             "head_dim": 64, "shape": VIT_SHAPE[0],
             "launches": (vit["launches_total"][name.removesuffix("_d64")]
                          + eager["vit_launches_total"][
+                             name.removesuffix("_d64")]
+                         + elastic["launches_total"][
                              name.removesuffix("_d64")]
                          + (spec["launches"][64] if grads == ("o",) else 0)),
             "max_abs_err": max(c[f"{g}_max_abs_err"] for c in cases

@@ -28,8 +28,13 @@ Horovod's own engine is here too (``ops/eager.py``): async handles
 cycle, negotiation through the repo's native controller, the timeline and
 autotune; ``EagerDistributedOptimizer`` and
 ``torch_frontend.DistributedOptimizer`` reduce gradients from backward
-hooks.  ``DistributedOptimizer`` here stays the synchronous one, as
-``horovod_tpu.DistributedOptimizer`` is the compiled one.
+hooks; ``HOROVOD_HIERARCHICAL_ALLREDUCE`` reduces in two levels, within
+and across nodes.  ``DistributedOptimizer`` here stays the synchronous
+one, as ``horovod_tpu.DistributedOptimizer`` is the compiled one.
+``elastic`` (and ``torch_frontend.elastic``'s ``TorchState``) commits,
+restores and replays training after a ``HorovodInternalError``.  The
+serving engine has a multi-replica front door, ``router.RouterServer``,
+and ``supervisor.ReplicaSupervisor`` respawns its dead replicas.
 """
 
 from horovod_tpu_torch._device import resolve_device
@@ -68,6 +73,7 @@ from horovod_tpu_torch.checkpoint import (latest_checkpoint, list_checkpoints,
                                           save_checkpoint,
                                           wait_for_checkpoints)
 from horovod_tpu_torch.training import fit, make_eval_step
+from horovod_tpu_torch import elastic
 
 __all__ = [
     "resolve_device", "HorovodInternalError", "NotInitializedError", "init",
@@ -90,4 +96,5 @@ __all__ = [
     "multiplier_schedule", "warmup_schedule", "latest_checkpoint",
     "list_checkpoints", "load_model", "restore_checkpoint",
     "save_checkpoint", "wait_for_checkpoints", "fit", "make_eval_step",
+    "elastic",
 ]

@@ -58,6 +58,12 @@ class _State:
     timeline: Any = None
     # start_timeline(profiler_dir=...): (torch.profiler.profile, its dir)
     profiler: Any = None
+    # The last init's (device, launcher environment), kept through
+    # shutdown(): elastic._reinit replays them to rebuild the same world
+    # (the reference's ``last_init_args``).
+    last_init_args: tuple | None = None
+    # (address, rank, world) and the rendezvous TCPStore of a launched world
+    store: tuple | None = None
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 
@@ -96,6 +102,17 @@ def _launch_env() -> dict | None:
             "local_rank": local_rank, "local_size": local_size}
 
 
+def _rendezvous_store(env: dict) -> dist.TCPStore:
+    """The launched world's TCP store at the coordinator's address (rank 0
+    serves it), made once and kept through ``shutdown()``."""
+    key = (env["addr"], env["rank"], env["world"])
+    if _state.store is None or _state.store[0] != key:
+        host, port = env["addr"].rsplit(":", 1)
+        _state.store = (key, dist.TCPStore(host, int(port), env["world"],
+                                           env["rank"] == 0))
+    return _state.store[1]
+
+
 def init(device: str | torch.device | None = None) -> None:
     """Start the process group.  ``device``: ``None`` means the card (this
     process's GPU, ``local_rank``), ``"cpu"`` the gloo CPU world.
@@ -104,9 +121,13 @@ def init(device: str | torch.device | None = None) -> None:
     ``InitializeHorovodOnce``, operations.cc:2011-2029)."""
     if _state.initialized:
         return
-    dev = resolve_device(device)
+    _init(resolve_device(device), _launch_env())
+
+
+def _init(dev: torch.device, env: dict | None) -> None:
+    """``init`` on a resolved device and launcher environment; records
+    both in ``last_init_args`` so that a replay builds the same world."""
     backend = "nccl" if dev.type == "cuda" else "gloo"
-    env = _launch_env()
     local_rank, local_size = 0, 1
     if env is not None:
         local_rank, local_size = env["local_rank"], env["local_size"]
@@ -119,14 +140,22 @@ def init(device: str | torch.device | None = None) -> None:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                     world_size=1)
         else:
-            dist.init_process_group(backend, init_method=f"tcp://{env['addr']}",
-                                    rank=env["rank"], world_size=env["world"])
+            # One rendezvous store for the life of the process, each init
+            # under its own prefix: a reinit (elastic.run) must not rebind
+            # the coordinator's port while a peer may still reach the old
+            # server.
+            store = _rendezvous_store(env)
+            gen = (store.add("hvd_torch/inits", 1) - 1) // env["world"]
+            dist.init_process_group(
+                backend, store=dist.PrefixStore(f"hvd_torch/{gen}", store),
+                rank=env["rank"], world_size=env["world"])
         owns = True
     _state.owns_group = owns
     _state.device = dev
     _state.local_rank, _state.local_size = local_rank, local_size
     _state.config = EngineConfig.from_env()
     _state.generation += 1
+    _state.last_init_args = (dev, None if env is None else dict(env))
     _state.initialized = True
 
 

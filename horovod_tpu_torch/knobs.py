@@ -33,7 +33,8 @@ ENV_KNOBS = (
     ("HOROVOD_FUSION_THRESHOLD", "67108864",
      "Tensor-fusion bucket size in bytes (64 MiB default)."),
     ("HOROVOD_HIERARCHICAL_ALLREDUCE", "0",
-     "Two-level allreduce; the port refuses it while it is set."),
+     "Two-level allreduce: reduce-scatter in the node, allreduce across "
+     "nodes, allgather in the node (node = local_size ranks)."),
     ("HOROVOD_STALL_CHECK_DISABLE", "0",
      "Disable the stalled-negotiation warning thread."),
     ("HOROVOD_STALL_CHECK_TIME", "60.0",
@@ -52,6 +53,9 @@ ENV_KNOBS = (
      "This process's global rank (launcher-provided)."),
     ("HVD_TORCH_ALERTS", "1",
      "Evaluate ALERT_RULES over the sampled series (0 = off)."),
+    ("HVD_TORCH_AUTOSCALE", "0",
+     "Fleet autoscaler on the router; refused until ROADMAP item 16 "
+     "ports it (RouterServer raises NotImplementedError)."),
     ("HVD_TORCH_CONTROLLER_TRANSPORT", "",
      "Native control-plane transport: tcp:<host>:<port> or local:<name>."),
     ("HVD_TORCH_DEVICE_POLL_S", "1.0",
@@ -60,6 +64,8 @@ ENV_KNOBS = (
      "Device telemetry plane in ServeEngine (cost model, MFU, HBM)."),
     ("HVD_TORCH_DRAFT_K", "4",
      "Draft tokens proposed per slot per tick when speculation is on."),
+    ("HVD_TORCH_ELASTIC_RETRIES", "3",
+     "Consecutive elastic.run restarts allowed before giving up."),
     ("HVD_TORCH_EVENT_LOG", "",
      "JSONL request-lifecycle event-log output path."),
     ("HVD_TORCH_EVENT_LOG_MAX_MB", "",
@@ -79,6 +85,14 @@ ENV_KNOBS = (
      "Ticks in the profiler's rolling per-phase report window."),
     ("HVD_TORCH_RETRACE_FATAL", "0",
      "Raise when a device program sees a second argument signature."),
+    ("HVD_TORCH_ROUTER_JOURNAL", "",
+     "Path of the crash-durable request-journal JSONL WAL (unset = off)."),
+    ("HVD_TORCH_ROUTER_POLICY", "prefix_affinity",
+     "RouterServer policy: round_robin, least_loaded, or prefix_affinity."),
+    ("HVD_TORCH_ROUTER_POLL_S", "0.05",
+     "Seconds between router polls of replica health and snapshots."),
+    ("HVD_TORCH_ROUTER_PORT", "",
+     "Port for the RouterServer HTTP front door (maybe_start_router)."),
     ("HVD_TORCH_SAMPLE_S", "1.0",
      "Seconds between time-series samples of the registry (<= 0 = off)."),
     ("HVD_TORCH_SCHED_POLICY", "fifo",

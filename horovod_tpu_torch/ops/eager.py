@@ -56,6 +56,7 @@ from horovod_tpu_torch.basics import HorovodInternalError
 from horovod_tpu_torch.ops import fusion
 from horovod_tpu_torch.ops.collective_ops import (Adasum, Average,
                                                   ProcessSet, Sum, _ReduceOp,
+                                                  _is_quantized,
                                                   _reduce_start, _resolve_op)
 from horovod_tpu_torch.ops.compression import Compression, TopKCompressor
 from horovod_tpu_torch.ops.handle_manager import HandleManager
@@ -192,11 +193,6 @@ class EagerEngine:
     One instance per :func:`basics.init`, made at the first eager op."""
 
     def __init__(self, cfg, timeline=None):
-        if cfg.hierarchical_allreduce:
-            raise NotImplementedError(
-                "HOROVOD_HIERARCHICAL_ALLREDUCE: the two-level allreduce "
-                "needs more than one card a host; see ROADMAP.md Queue A "
-                "(multi-card items)")
         self.config = cfg
         self.handles = HandleManager()
         self.timeline = timeline
@@ -205,6 +201,12 @@ class EagerEngine:
         # The engine's own group of the whole world: its collectives pair up
         # by the engine's issue order alone.
         self.group = dist.new_group(list(range(self.size)))
+        # HOROVOD_HIERARCHICAL_ALLREDUCE: this rank's node group and its
+        # cross-node group (None: the flat route).
+        self.local_group = self.cross_group = None
+        self.hier_local = 1
+        if cfg.hierarchical_allreduce:
+            self._make_hierarchy(basics.local_size())
         self._ps_groups: dict[tuple, Any] = {}
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -267,6 +269,37 @@ class EagerEngine:
                 target=self._stall_loop, name="horovod_tpu_torch-stall",
                 daemon=True)
             self._stall_thread.start()
+
+    def _make_hierarchy(self, local: int) -> None:
+        """The two-level allreduce's groups (reference
+        operations.cc:1070-1223; the JAX engine's (dcn, ici) mesh,
+        horovod_tpu/ops/eager.py:121-145): rank r sits on node
+        ``r // local`` at local rank ``r % local``, the launcher's
+        numbering.  One group per node, then one per local rank across
+        the nodes, every ``new_group`` on every rank in this order (each
+        is a collective of the whole world).  A world that does not
+        factor warns, as the JAX engine does, and stays flat."""
+        n = self.size
+        if not (local > 1 and n % local == 0 and n // local > 1):
+            print("WARNING: HOROVOD_HIERARCHICAL_ALLREDUCE=1 ignored: "
+                  f"world of {n} ranks does not factor into (cross, "
+                  f"local={local}) groups with both extents > 1; "
+                  "dispatching over the flat group.  Set "
+                  "HOROVOD_TPU_LOCAL_SIZE (or LOCAL_WORLD_SIZE) to a "
+                  "divisor of the world size to choose the inner extent.",
+                  file=sys.stderr)
+            return
+        for node in range(n // local):
+            ranks = list(range(node * local, (node + 1) * local))
+            g = dist.new_group(ranks)
+            if self.rank in ranks:
+                self.local_group = g
+        for lr in range(local):
+            ranks = list(range(lr, n, local))
+            g = dist.new_group(ranks)
+            if self.rank in ranks:
+                self.cross_group = g
+        self.hier_local = local
 
     def _mark_error(self, handle: int, err: Exception) -> None:
         self.handles.mark_error(handle, err)
@@ -711,9 +744,8 @@ class EagerEngine:
             ps = group[0].process_set
             with self._issue(group):
                 flat = torch.cat([p.tensor.reshape(-1) for p in group])
-                work, finish = _reduce_start(
-                    flat, group[0].op, group[0].compression, ps,
-                    group=self._group_for(ps))
+                work, finish = self._reduce_bucket(
+                    flat, group[0].op, group[0].compression, ps)
                 numels = [p.tensor.numel() for p in group]
                 shapes = [p.tensor.shape for p in group]
 
@@ -740,6 +772,46 @@ class EagerEngine:
                 for n, p in zip(names, group):
                     tl.end(n, timeline_mod.DISPATCH)
                     tl.end(n, "ALLREDUCE", _op_end_args(p))
+
+    def _reduce_bucket(self, flat: torch.Tensor, op: _ReduceOp,
+                       compression, ps: ProcessSet | None):
+        """Start a fused bucket's reduction: the two-level route for Sum
+        and Average over the whole world with a cast wire, else the flat
+        one.  The JAX engine runs every op over the (dcn, ici) mesh, where
+        the other ops' results equal the flat ones; they stay flat here."""
+        if (self.local_group is None or ps is not None
+                or op not in (Sum, Average) or _is_quantized(compression)):
+            return _reduce_start(flat, op, compression, ps,
+                                 group=self._group_for(ps))
+        return self._hierarchical_start(flat, op, compression)
+
+    def _hierarchical_start(self, buf: torch.Tensor, op: _ReduceOp,
+                            compression):
+        """Horovod's hierarchical allreduce (operations.cc:1070-1223):
+        reduce-scatter within the node, allreduce of the shard across the
+        nodes, allgather within the node.  The wire is padded to a
+        multiple of the node size and cut back after; Average divides
+        once, by the world size."""
+        wire, ctx = compression.compress(buf)
+        n = wire.numel()
+        pad = (-n) % self.hier_local
+        if pad:
+            wire = torch.cat([wire, wire.new_zeros(pad)])
+        shard = wire.new_empty(wire.numel() // self.hier_local)
+        dist.reduce_scatter_tensor(shard, wire, op=dist.ReduceOp.SUM,
+                                   group=self.local_group)
+        dist.all_reduce(shard, op=dist.ReduceOp.SUM, group=self.cross_group)
+        out = torch.empty_like(wire)
+        work = dist.all_gather_into_tensor(out, shard, group=self.local_group,
+                                           async_op=True)
+
+        def finish():
+            res = out[:n]
+            if op is Average:
+                res = (res.div_(self.size) if res.is_floating_point()
+                       else res / self.size)
+            return compression.decompress(res, ctx)
+        return work, finish
 
     def _dispatch_single(self, p: _PendingOp) -> None:
         tl = self.timeline

@@ -117,7 +117,16 @@ class EagerDistributedOptimizer:
             # again, so step() never updates on an unreduced gradient.
             self._synchronized = False
             if self._delay[name] == 0 and not self.local:
-                self._handles[name] = (p, self._enqueue(name, p.grad))
+                try:
+                    h = self._enqueue(name, p.grad)
+                except BaseException:
+                    # The engine failed mid-backward (HorovodInternalError
+                    # for elastic.run): drop the update in flight, as a
+                    # failed synchronize() does, so that a replayed
+                    # backward starts from a clean count.
+                    self._discard()
+                    raise
+                self._handles[name] = (p, h)
         return hook
 
     def _enqueue(self, name: str, grad: torch.Tensor) -> int:
@@ -211,14 +220,20 @@ class EagerDistributedOptimizer:
             for name, res in commits:
                 self._residuals[name] = res
         except BaseException:
-            self._synchronized = False
-            for _, h in self._handles.values():
-                self._pending_residuals.pop(h, None)
-                self._handle_dtypes.pop(h, None)
-                eager.release(h)
+            self._discard()
             raise
         finally:
             self._reset()
+
+    def _discard(self) -> None:
+        """Drop the update in flight: release its handles and forget their
+        residuals, so that none of a failed step sticks."""
+        self._synchronized = False
+        for _, h in self._handles.values():
+            self._pending_residuals.pop(h, None)
+            self._handle_dtypes.pop(h, None)
+            eager.release(h)
+        self._reset()
 
     def _reset(self) -> None:
         self._handles.clear()

@@ -246,3 +246,8 @@ def DistributedOptimizer(optimizer, named_parameters=None, *,
     return _DistributedOptimizer(
         optimizer, named_parameters, compression=compression, op=op,
         backward_passes_per_step=backward_passes_per_step)
+
+
+# hvd.elastic.TorchState / hvd.elastic.run: horovod.torch.elastic
+# (Horovod 0.20+; the JAX frontend's horovod_tpu/torch.py:891).
+from horovod_tpu_torch import torch_elastic as elastic  # noqa: E402,F401

@@ -71,8 +71,8 @@ class EngineConfig:
     cycle_time_ms: float = DEFAULT_CYCLE_TIME_MS
     stall_check_enabled: bool = True
     stall_warning_time_s: float = DEFAULT_STALL_WARNING_TIME_S
-    # Read so that a launch script carrying it is refused, not ignored:
-    # the eager engine raises NotImplementedError while it is set.
+    # The eager engine's two-level allreduce over node groups of
+    # basics.local_size() ranks (ops/eager.py, _make_hierarchy).
     hierarchical_allreduce: bool = False
     # The native coordination engine (native/src/): "auto" runs it when
     # the world has more than one rank, "on" always, "off" never.

@@ -26,6 +26,8 @@ KNOB = re.compile(r"(HVD_TORCH|HOROVOD)_[A-Z0-9_]+")
 # the port's knobs whose reference counterpart has another name or meaning
 _PORT_OWN = {"HVD_TORCH_CONTROLLER_TRANSPORT", "HVD_TORCH_NATIVE_CONTROLLER",
              "HVD_TORCH_FLASH_BWD"}
+# the port's knobs whose reference counterpart is not HVD_TPU_<same>
+_REF_NAME = {"HVD_TORCH_ELASTIC_RETRIES": "HOROVOD_TPU_ELASTIC_RETRIES"}
 
 
 def _literals() -> dict[str, set[str]]:
@@ -65,7 +67,8 @@ def test_table_is_sorted_unique_and_renders():
 def test_defaults_are_the_references(name):
     ref = {k.name: k.default for k in jknobs.knobs()}
     port = {k.name: k.default for k in knobs.knobs()}
-    assert port[name] == ref[name.replace("HVD_TORCH_", "HVD_TPU_")]
+    assert port[name] == ref[_REF_NAME.get(
+        name, name.replace("HVD_TORCH_", "HVD_TPU_"))]
 
 
 def test_the_new_planes_have_rows():
@@ -74,3 +77,13 @@ def test_the_new_planes_have_rows():
             "HVD_TORCH_PEAK_FLOPS", "HVD_TORCH_MONITOR_PORT",
             "HVD_TORCH_SAMPLE_S", "HVD_TORCH_ALERTS",
             "HVD_TORCH_TRACE_SAMPLE", "HVD_TORCH_TRACE_SEED"} <= rows
+
+
+def test_the_elastic_router_and_supervisor_knobs_have_rows():
+    rows = {k.name: k for k in knobs.knobs()}
+    # the router's deployment settings are knobs; its tuning settings and
+    # the supervisor's are constructor arguments (ROADMAP item 16)
+    assert {"HVD_TORCH_ELASTIC_RETRIES", "HVD_TORCH_AUTOSCALE",
+            "HVD_TORCH_ROUTER_JOURNAL", "HVD_TORCH_ROUTER_POLICY",
+            "HVD_TORCH_ROUTER_POLL_S", "HVD_TORCH_ROUTER_PORT"} <= set(rows)
+    assert "ROADMAP item 16" in rows["HVD_TORCH_AUTOSCALE"].help

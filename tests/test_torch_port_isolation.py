@@ -66,9 +66,12 @@ def test_port_modules_import_without_jax():
             "horovod_tpu_torch.examples.pytorch_synthetic_benchmark",
             "horovod_tpu_torch.knobs", "horovod_tpu_torch.device_telemetry",
             "horovod_tpu_torch.tracing", "horovod_tpu_torch.monitor",
-            "horovod_tpu_torch.timeseries", "horovod_tpu_torch.alerts"
+            "horovod_tpu_torch.timeseries", "horovod_tpu_torch.alerts",
+            "horovod_tpu_torch.elastic", "horovod_tpu_torch.torch_elastic",
+            "horovod_tpu_torch.router", "horovod_tpu_torch.supervisor",
+            "horovod_tpu_torch.examples.pytorch_elastic",
             } <= set(mods)
-    assert len(mods) >= 59
+    assert len(mods) >= 64
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"

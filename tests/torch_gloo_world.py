@@ -1,9 +1,10 @@
 """Helpers for the port's multi-rank tests: a gloo world of W processes
 and the JAX package's SPMD twin on W CPU devices.
 
-``start_world(fn, W, *args, env=None)`` spawns W processes
+``start_world(fn, W, *args, env=None, local_size=None)`` spawns W processes
 (``torch.multiprocessing``, ``spawn``) that rendezvous through the JAX
-launcher's variables, set the variables of ``env`` (a dict), call
+launcher's variables, set the variables of ``env`` (a dict), number
+ranks into nodes of ``local_size`` (default: one node of W), call
 ``basics.init("cpu")``, run ``fn(rank, W, *args)`` (a module-level function,
 so that it pickles by reference) and write its result; the returned
 ``join()`` waits and gives the results in rank order, so the caller can run
@@ -29,12 +30,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _entry(rank, fn, world, port, out_dir, args, env):
+def _entry(rank, fn, world, port, out_dir, args, env, local_size):
     os.environ.update(env or {})
+    local = world if local_size is None else local_size
     os.environ.update(
         HOROVOD_TPU_PROCESS_ID=str(rank), HOROVOD_TPU_NUM_PROCESSES=str(world),
         HOROVOD_TPU_COORDINATOR=f"127.0.0.1:{port}",
-        HOROVOD_TPU_LOCAL_RANK=str(rank), HOROVOD_TPU_LOCAL_SIZE=str(world))
+        HOROVOD_TPU_LOCAL_RANK=str(rank % local),
+        HOROVOD_TPU_LOCAL_SIZE=str(local))
     from horovod_tpu_torch import basics
 
     basics.init("cpu")
@@ -46,10 +49,10 @@ def _entry(rank, fn, world, port, out_dir, args, env):
         pickle.dump(result, f)
 
 
-def start_world(fn, world: int, *args, env=None):
+def start_world(fn, world: int, *args, env=None, local_size=None):
     out_dir = tempfile.mkdtemp(prefix=f"gloo{world}_")
     ctx = mp.start_processes(_entry, args=(fn, world, free_port(), out_dir,
-                                           args, env),
+                                           args, env, local_size),
                              nprocs=world, join=False, start_method="spawn")
 
     def join(timeout: float | None = None) -> list:
