@@ -83,6 +83,30 @@ Phases, one JSON line each; any failure exits non-zero before the result:
    respawn, the phase's peak memory, and the flash launches of the fleet's
    own waves, counted from 0 around each wave: none, because the engine's
    paged programs attend with plain einsums, as the reference's do.
+   ``serve throughput`` (the same weights): ``measure_throughput``,
+   ``measure_prefix_throughput`` and ``measure_spec_throughput`` on 16
+   requests in four 128-token families (8 slots × 512, 256-token windows,
+   128-token blocks): serve against static (fixed batches of ``generate``)
+   and speculative against plain tokens request for request, equal or
+   first split at a near-tie of the target (within 2 % of max|logit|)
+   and greedy-consistent after it; every plane's overhead finite (recorded,
+   unresolved), ``serve_mfu`` in (0, 1); the static baseline's D = 128
+   forward launches exactly 32 × 2 batches × 2 passes, the engines' none.
+   ``serve load``: ``measure_saturation`` through the HTTP door of two
+   replicas (16 slots × 128), a probe rung, then a ladder of 0.5, 1, 2 and
+   4 × the probe's served rate, each rung long enough to hold 20 arrivals;
+   each rung's schedule digest equal to the rebuilt schedule's, every
+   request answered, attribution coverage 1, the knee below the top rung,
+   the top rung's p99 TTFT above the bottom's, an advisor with no
+   ``load_report=`` reading the knee from ``serve_load_report.json`` under
+   ``HVD_TORCH_BENCH_CACHE``.  ``serve chaos``: ``run_campaign`` on three
+   replicas with the alert oracle, ``run_autoscale_campaign``,
+   ``measure_autoscale_goodput``; every oracle, ≥ 1 respawn, each respawn
+   or grow sharing the weights, holding one KV pool of its own within 1 %
+   and moving the allocator by one pool within 25 %.  ``fleet simfleet`` (host only, after the
+   serving phases): ``run_sim_campaign`` at 200 replicas × 100,000
+   requests, every oracle and the reference's counts, wall seconds
+   recorded.
 7. ``train``: Llama-3-8B width cut to ``--train-layers`` (default 8), remat,
    flash attention, f32 master weights and bf16 compute, through the port's
    ``basics.init`` (NCCL, a world of one), ``broadcast_parameters``,
@@ -215,6 +239,7 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = "cuda"
+START = time.perf_counter()
 
 # H100 SXM dense peaks (NVIDIA data sheet), for the roofline bound.
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}
@@ -242,6 +267,11 @@ LOGIT_RTOL = 5e-2
 # margin exceeds this share of the largest |logit| (bf16 ties are not
 # claimed across batch shapes).
 MARGIN_RTOL = 5e-2
+# Where an engine's greedy tokens and a baseline's first part, the target's
+# logits for the two competing tokens must lie this close (a share of the
+# largest |logit|): a near-tie that two batch shapes rounded apart.  The
+# largest such gap seen on the card was 1.47 %.
+DIVERGE_RTOL = 2e-2
 
 
 # Llama-3-8B attention heads (H, KVH, D) of every kernel case.
@@ -272,7 +302,9 @@ class PhaseError(RuntimeError):
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, stamped with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - START}), flush=True)
 
 
 def sync() -> None:
@@ -3427,6 +3459,554 @@ def phase_router(cfg, params, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------- the fleet's control plane
+
+THROUGHPUT = {"n_slots": 8, "max_len": 512, "chunk": 256, "block_size": 128}
+THROUGHPUT_SUFFIXES = (8, 40, 72, 104)
+THROUGHPUT_BUDGETS = (4, 8)
+
+
+def _flash_zero() -> None:
+    """Set every flash kernel's launch count to 0."""
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    fa.launches = 0
+    fa.fwd_launches_by_dim.update({64: 0, 128: 0})
+    fa.dq_launches = fa.dkv_launches = 0
+
+
+def _throughput_requests(cfg, seed: int):
+    """16 requests in four families: a random 128-token prefix each (one
+    full block, so the prefix cache can reuse it), then a random 8-token
+    phrase repeated to each length in ``THROUGHPUT_SUFFIXES`` (n-grams the
+    prompt-lookup drafter can find): one 256-token window a prompt.
+    Budgets alternate 4 and 8, so each fixed batch of eight decodes to 8."""
+    import numpy as np
+
+    from horovod_tpu_torch.serving import Request
+
+    rng = np.random.RandomState(seed + 13)
+    fams = [rng.randint(0, cfg.vocab_size, THROUGHPUT["block_size"])
+            .tolist() for _ in range(4)]
+    reqs = []
+    for i in range(16):
+        phrase = rng.randint(0, cfg.vocab_size, 8).tolist()
+        n = THROUGHPUT_SUFFIXES[i // 4]
+        reqs.append(Request(prompt=fams[i % 4] + (phrase * 13)[:n],
+                            max_new_tokens=THROUGHPUT_BUDGETS[i % 2]))
+    return reqs
+
+
+def _divergence(params, cfg, prompt, a, b) -> dict:
+    """Where two greedy token lists of one request first differ: the
+    tokens before are equal by construction, and one target ``forward``
+    over the prompt and that common prefix gives the logits of the two
+    competing tokens; their gap, as a share of max|logit|, must be at most
+    ``DIVERGE_RTOL``."""
+    import torch
+
+    from horovod_tpu_torch.models import llama
+
+    p = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if p is None:                            # one is a prefix of the other
+        return {"position": min(len(a), len(b)), "gap_share": None,
+                "ok": False}
+    toks = torch.as_tensor([list(prompt) + list(a[:p])], device=DEV)
+    with torch.no_grad():
+        hidden = llama.forward(params, toks, cfg, return_hidden=True)
+        logits = (hidden[0, -1] @ params["lm_head"].to(cfg.dtype)).float()
+    gap = float((logits[a[p]] - logits[b[p]]).abs() / logits.abs().max())
+    return {"position": p, "tokens": [a[p], b[p]], "gap_share": gap,
+            "ok": gap <= DIVERGE_RTOL}
+
+
+def _same_or_consistent(params, cfg, reqs, a, b) -> dict:
+    """Two token lists a request: how many are equal bit for bit.  Where
+    they differ, the first differing position must be a near-tie of the
+    target (``_divergence``, within ``DIVERGE_RTOL``), and after it each
+    side, now in a context of its own, must be greedy-consistent
+    (``_greedy_consistency`` over its whole output, within the looser
+    ``MARGIN_RTOL``)."""
+    differ = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    splits = [_divergence(params, cfg, reqs[i].prompt, a[i], b[i])
+              for i in differ]
+    prompts = [reqs[i].prompt for i in differ]
+    consistency = {
+        side: _greedy_consistency(params, cfg, prompts,
+                                  [toks[i] for i in differ])
+        for side, toks in (("a", a), ("b", b))} if differ else {}
+    return {"requests": len(a), "bit_equal": len(a) - len(differ),
+            "differ": differ, "divergence": splits,
+            "diverge_rtol": DIVERGE_RTOL, "consistency": consistency,
+            "ok": len(a) == len(b) == len(reqs)
+            and all(d["ok"] for d in splits)
+            and all(c["ok"] for c in consistency.values())}
+
+
+def phase_throughput(cfg, params, seed: int) -> dict:
+    """The engine's bench arms at Llama-3-8B width on the serving phases'
+    weights: ``measure_throughput`` (the engine against fixed batches of
+    plain ``generate``, and the min-of-2 overhead of each measurement
+    plane), ``measure_prefix_throughput`` and ``measure_spec_throughput``,
+    each on the same 16 requests (``_throughput_requests``), 8 slots of
+    512 positions, 256-token windows, 128-token blocks.  Checks: every
+    overhead finite, ``serve_mfu`` in (0, 1), budgets exact, prefix hits
+    and cache-on tokens equal cache-off's (the function asserts it); serve
+    against static and speculative against plain tokens are compared
+    request for request: equal, or first split at a near-tie of the target
+    and greedy-consistent after it (``_same_or_consistent``; the bit-equal
+    count is recorded).  The flash forward's launches are
+    counted from 0 around each function: the static baseline's prefills
+    launch it once a layer, for the warm-up and the timed pass of each
+    fixed batch; the engines' paged programs launch none.  The overhead
+    percentages are recorded but unresolved: a pass decodes 96 tokens
+    behind 16 prefills of 256, and two runs of this phase on one card
+    differed by up to 23 points."""
+    import torch
+
+    from horovod_tpu_torch.parallel import flash_attention as fa
+    from horovod_tpu_torch.serving_scheduler import (
+        measure_prefix_throughput, measure_spec_throughput,
+        measure_throughput)
+
+    reqs = _throughput_requests(cfg, seed)
+    emit("depth cut", path="serve throughput", requests=len(reqs),
+         budgets=list(THROUGHPUT_BUDGETS), widths="full")
+    seconds = {}
+    _flash_zero()
+    t0 = time.perf_counter()
+    thr = measure_throughput(params, cfg, reqs, keep_tokens=True,
+                             **THROUGHPUT)
+    seconds["measure_throughput"] = time.perf_counter() - t0
+    static_launches = fa.fwd_launches_by_dim[128]
+    other_launches = fa.launches - static_launches
+    serve_tokens = thr.pop("serve_tokens")
+    static_tokens = thr.pop("static_tokens")
+    _flash_zero()
+    t0 = time.perf_counter()
+    prefix = measure_prefix_throughput(params, cfg, reqs, **THROUGHPUT)
+    seconds["measure_prefix_throughput"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec = measure_spec_throughput(params, cfg, reqs, draft_k=4,
+                                   keep_tokens=True, **THROUGHPUT)
+    seconds["measure_spec_throughput"] = time.perf_counter() - t0
+    engine_launches = fa.launches
+    spec_tokens = spec.pop("serve_spec_tokens")
+    plain_tokens = spec.pop("serve_spec_plain_tokens")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    static_cmp = _same_or_consistent(params, cfg, reqs, serve_tokens,
+                                     static_tokens)
+    spec_cmp = _same_or_consistent(params, cfg, reqs, spec_tokens,
+                                   plain_tokens)
+    seconds["oracles"] = time.perf_counter() - t0
+    want = cfg.n_layers * thr["static_batches"] * 2
+    overheads = {k: thr[k] for k in (
+        "serve_metrics_overhead_pct", "monitor_overhead_pct",
+        "serve_profiler_overhead_pct", "serve_health_overhead_pct",
+        "serve_trace_overhead_pct", "device_telemetry_overhead_pct")}
+    mfu = thr["serve_mfu"]
+    checks = {
+        "serve_tokens_equal_static_or_split_at_near_tie": static_cmp["ok"],
+        "spec_tokens_equal_plain_or_split_at_near_tie": spec_cmp["ok"],
+        "budgets_exact": [len(t) for t in serve_tokens]
+        == [r.max_new_tokens for r in reqs]
+        and [len(t) for t in spec_tokens]
+        == [r.max_new_tokens for r in reqs],
+        "overheads_finite": all(math.isfinite(v)
+                                for v in overheads.values()),
+        "serve_mfu_in_0_1": mfu is not None and 0.0 < mfu < 1.0,
+        "static_launches_exact": static_launches == want
+        and other_launches == 0,
+        "engines_launch_no_flash": engine_launches == 0,
+        "prefix_hits": prefix["serve_prefix_hit_rate"] > 0,
+    }
+    out = {"engine": THROUGHPUT, "n_layers": cfg.n_layers,
+           "n_requests": len(reqs), "seconds": seconds,
+           "serve_vs_static_ratio": thr["serve_vs_static_ratio"],
+           "serve_tokens_per_sec": thr["serve_tokens_per_sec"],
+           "static_tokens_per_sec": thr["static_tokens_per_sec"],
+           "serve_prefix_speedup": prefix["serve_prefix_speedup"],
+           "serve_prefix_hit_rate": prefix["serve_prefix_hit_rate"],
+           "serve_spec_vs_plain_ratio": spec["serve_spec_vs_plain_ratio"],
+           "overheads_pct": overheads, "overheads_resolved": False,
+           "serve_mfu": mfu,
+           "serve_vs_static_tokens": static_cmp,
+           "spec_vs_plain_tokens": spec_cmp,
+           "launches": {"flash_fwd_d128": static_launches,
+                        "expected": want,
+                        "static_batches": thr["static_batches"],
+                        "passes": 2, "engines": engine_launches,
+                        "window": "measure_throughput (its static "
+                                  "baseline) alone"},
+           "measure_throughput": thr, "measure_prefix_throughput": prefix,
+           "measure_spec_throughput": spec,
+           "checks": checks, "ok": all(checks.values())}
+    emit("serve throughput", **out)
+    if not out["ok"]:
+        raise PhaseError("serve throughput failed its checks: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return out
+
+
+LOAD_ENGINE = {"n_slots": 16, "max_len": 128, "chunk": 64}
+LOAD_PROBE_RPS = 64.0
+LOAD_PROBE_S = 1.0
+LOAD_LADDER = (0.5, 1.0, 2.0, 4.0)   # × the probe rung's served rate
+LOAD_MIN_N = 20                      # arrivals every rung must hold
+LOAD_MAX_S = 60.0
+
+
+def _rung_schedule(mix, seed: int, i: int, rate: float, duration: float):
+    """Rung ``i``'s Poisson schedule, rebuilt as ``measure_saturation``
+    builds it: a pure function of the seed, rung index, rate and
+    duration."""
+    from horovod_tpu_torch.loadgen import build_schedule, resolve_process
+
+    rs = seed * 8191 + 1000003 * (i + 1)
+    return rs, build_schedule(resolve_process("poisson", rate, rs), mix,
+                              duration, rs)
+
+
+def _load_duration(mix, seed: int, ladder) -> float:
+    """The shortest rung length, in steps of 0.5 s, at which every rung's
+    schedule holds ``LOAD_MIN_N`` arrivals (known before a request is
+    sent, the schedules being pure)."""
+    d = 0.5
+    while d <= LOAD_MAX_S:
+        if all(len(_rung_schedule(mix, seed, i, rate, d)[1]) >= LOAD_MIN_N
+               for i, rate in enumerate(ladder)):
+            return d
+        d += 0.5
+    raise PhaseError(f"no rung length up to {LOAD_MAX_S} s gives "
+                     f"{LOAD_MIN_N} arrivals at {ladder} rps")
+
+
+def phase_load(cfg, params, seed: int) -> dict:
+    """``measure_saturation(http=True)`` at Llama-3-8B width: two
+    replicas (16 slots × 128 positions, 64-token windows, prefix cache) on
+    the serving phases' weights behind the HTTP front door,
+    ``DEFAULT_TENANTS`` arriving as Poisson.  A probe rung of
+    ``LOAD_PROBE_RPS`` for ``LOAD_PROBE_S`` measures what the fleet serves
+    (OK requests over the rung's makespan); the reported ladder is that
+    rate times ``LOAD_LADDER``, past capacity, and each rung lasts as long
+    as it takes every rung to hold ``LOAD_MIN_N`` arrivals.  Checks: each
+    rung's ``schedule_digest`` equals the schedule rebuilt from the seed,
+    rung index, rate and duration; every rung holds ``LOAD_MIN_N``
+    requests and each is answered; the knee's attribution tiles its e2e
+    (coverage 1 to float rounding); the knee lies below the top rung (the
+    ladder passed it); the top rung's p99 TTFT exceeds the bottom's (the
+    queue past capacity shows); and a ``CapacityAdvisor`` built without a
+    ``load_report=`` reads the knee from ``serve_load_report.json`` under
+    ``HVD_TORCH_BENCH_CACHE``.  The report's own p99-TTFT monotone flag is
+    recorded."""
+    import tempfile
+
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.alerts import CapacityAdvisor
+    from horovod_tpu_torch.loadgen import (
+        DEFAULT_TENANTS, RequestMix, measure_saturation, schedule_digest)
+    from horovod_tpu_torch.serving_scheduler import ServeEngine
+    from horovod_tpu_torch.timeseries import MetricsSampler
+
+    engines = [ServeEngine(params, cfg, prefix_cache=True, sampler=False,
+                           metrics=metrics.MetricsRegistry(event_log=None),
+                           **LOAD_ENGINE) for _ in range(2)]
+    kw = dict(engines=engines, seed=seed, process="poisson",
+              timeout_s=300.0, http=True)
+    probe = measure_saturation(ladder=(LOAD_PROBE_RPS,), keep_records=True,
+                               duration_s=LOAD_PROBE_S, **kw)
+    oks = [r for r in probe["records"][0] if r["status"] == "OK"]
+    makespan = max(r["sched_t"] + r["e2e_s"] for r in oks)
+    capacity = len(oks) / makespan
+    ladder = tuple(round(capacity * f, 3) for f in LOAD_LADDER)
+    mix = RequestMix(DEFAULT_TENANTS, seed)
+    duration = _load_duration(mix, seed, ladder)
+    print(f"serve load: probe {LOAD_PROBE_RPS} rps served "
+          f"{capacity:.3f} rps; ladder {ladder} rps, {duration} s a rung",
+          flush=True)
+    emit("depth cut", path="serve load", rungs=len(LOAD_LADDER),
+         of="4 (the harness's default ladder)", duration_s=duration,
+         min_requests_a_rung=LOAD_MIN_N, widths="full")
+    rep = measure_saturation(ladder=ladder, duration_s=duration, **kw)
+    digests = []
+    for i, (rate, rung) in enumerate(zip(ladder, rep["rungs"])):
+        rs, sched = _rung_schedule(mix, seed, i, rate, duration)
+        digest = schedule_digest(sched)
+        digests.append({"rate": rate, "rung_seed": rs, "n": len(sched),
+                        "digest": digest,
+                        "equal": (digest == rung["schedule_digest"]
+                                  and len(sched) == rung["n"])})
+    cache = tempfile.mkdtemp(prefix="hvd_load_")
+    with open(os.path.join(cache, "serve_load_report.json"), "w") as f:
+        json.dump(rep, f)
+    with _env({"HVD_TORCH_BENCH_CACHE": cache}):
+        reg = metrics.MetricsRegistry(event_log=None)
+        advisor = CapacityAdvisor(MetricsSampler(reg, sample_s=1.0),
+                                  registry=reg)
+        knee = advisor.load_knee()
+    rungs = rep["rungs"]
+    cov = rep["serve_load_attr_coverage_knee"]
+    checks = {
+        "digests_equal_rebuilt": all(d["equal"] for d in digests),
+        "every_rung_holds_min_n": all(r["n"] >= LOAD_MIN_N for r in rungs),
+        "all_requests_answered": all(r["timeout_rate"] == 0.0
+                                     for r in rungs),
+        "attr_coverage_1": abs(cov - 1.0) <= 1e-6,
+        "knee_below_top_rung": 0 <= rep["knee_index"] < len(ladder) - 1,
+        "overload_raises_p99_ttft":
+            rungs[-1]["p99_ttft_s"] > rungs[0]["p99_ttft_s"],
+        "advisor_reads_knee": knee is not None
+        and knee.get("serve_load_knee_goodput_rps")
+        == rep["serve_load_knee_goodput_rps"],
+    }
+    out = {"engine": LOAD_ENGINE, "replicas": 2, "n_layers": cfg.n_layers,
+           "probe_rps": LOAD_PROBE_RPS, "probe_s": LOAD_PROBE_S,
+           "probe_requests": len(probe["records"][0]),
+           "probe_served_rps": capacity, "ladder": list(ladder),
+           "duration_s": duration, "digests": digests,
+           "report": {k: v for k, v in rep.items() if k != "rungs"},
+           "rungs": [{k: r[k] for k in (
+               "offered_rps", "n", "statuses", "ok_rate", "goodput",
+               "goodput_rps", "p50_ttft_s", "p99_ttft_s", "p50_tpot_s",
+               "p99_tpot_s", "p50_e2e_s", "p99_e2e_s", "schedule_digest")}
+               | {"attribution": r["attribution"]} for r in rungs],
+           "checks": checks, "ok": all(checks.values())}
+    emit("serve load", **out)
+    if not out["ok"]:
+        raise PhaseError("serve load failed its checks: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return out
+
+
+CHAOS_ENGINE = {"n_slots": 2, "max_len": 1024, "chunk": 64}
+# Clean waves after heal: a storm's FAILED requests leave each replica's
+# goodput window (8 terminals) only as fresh ones displace them, and the
+# replicas share one serve.goodput gauge; one wave of four requests over
+# three replicas can leave the burn alerts firing past the drain (seen in
+# one of two CPU runs), so eight are served, as in the reference's
+# alert-oracle test.
+CHAOS_RECOVERY_WAVES = 8
+POOL_RTOL = 0.01
+# The allocator's change across a clone also counts the other replicas'
+# activations, allocated and freed while they serve (−7.2 % of a pool at
+# worst on the card so far).
+ALLOC_RTOL = 0.25
+
+
+def _allocated() -> int:
+    """Allocated bytes on the card once the dropped fleets' reference
+    cycles (router ↔ replicas ↔ supervisor) are collected."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    return torch.cuda.memory_allocated()
+
+
+def _storages(root, device) -> dict:
+    """``data_ptr → bytes`` of every storage on ``device`` reachable from
+    ``root``: through lists, tuples, sets, deques and dicts, and through
+    the attributes (``__dict__`` and ``__slots__``) of the port's own
+    objects, so the paged pool, its tables and whatever the engine's
+    planes, sampler, tracer and caches hold are all found."""
+    import collections
+
+    import torch
+
+    found: dict = {}
+    seen: set = set()
+    stack = [root]
+    while stack:
+        x = stack.pop()
+        if id(x) in seen:
+            continue
+        seen.add(id(x))
+        if isinstance(x, torch.Tensor):
+            if x.device == device:
+                st = x.untyped_storage()
+                found[st.data_ptr()] = st.nbytes()
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple, set, frozenset, collections.deque)):
+            stack.extend(x)
+        elif type(x).__module__.startswith("horovod_tpu_torch"):
+            stack.extend(getattr(x, "__dict__", {}).values())
+            for cls in type(x).__mro__:
+                slots = getattr(cls, "__slots__", ())
+                for name in (slots,) if isinstance(slots, str) else slots:
+                    if hasattr(x, name):
+                        stack.append(getattr(x, name))
+    return found
+
+
+@contextlib.contextmanager
+def _clone_costs():
+    """Record what each ``clone_engine`` (a respawn or a grow) costs on the
+    card: the bytes of the storages reachable from the clone and not from
+    the engine it was cloned from (``_storages``; the weights are shared),
+    beside its KV pool's bytes, and the allocator's change across the call
+    (which also counts what the other replicas allocate and free
+    meanwhile: they serve on while the poller respawns)."""
+    import torch
+
+    from horovod_tpu_torch import supervisor
+
+    costs: list = []
+    original = supervisor.clone_engine
+
+    def measured(eng):
+        sync()
+        before = torch.cuda.memory_allocated()
+        clone = original(eng)
+        sync()
+        delta = torch.cuda.memory_allocated() - before
+        old = _storages(eng, eng.device)
+        new = _storages(clone, eng.device)
+        costs.append({
+            "owned_bytes": sum(n for ptr, n in new.items()
+                               if ptr not in old),
+            "pool_bytes": clone.memory_report()["kv"]["total_bytes"],
+            "allocator_delta_bytes": delta,
+            "shares_weights": clone.params is eng.params})
+        return clone
+
+    supervisor.clone_engine = measured
+    try:
+        yield costs
+    finally:
+        supervisor.clone_engine = original
+
+
+def _pool_checks(name: str, costs: list) -> dict:
+    """Each clone shares the weights, holds one pool's bytes of its own
+    within ``POOL_RTOL``, and moved the allocator by one pool within
+    ``ALLOC_RTOL`` (a copy of even one layer's weights, 436 MB, is more
+    than that)."""
+    return {f"{name}_clone_{i}_costs_one_pool":
+            c["shares_weights"]
+            and abs(c["owned_bytes"] - c["pool_bytes"])
+            <= POOL_RTOL * c["pool_bytes"]
+            and abs(c["allocator_delta_bytes"] - c["pool_bytes"])
+            <= ALLOC_RTOL * c["pool_bytes"] for i, c in enumerate(costs)}
+
+
+def phase_chaos(cfg, params, seed: int) -> dict:
+    """The fleet's chaos campaigns at Llama-3-8B width on the serving
+    phases' weights (engines of 2 slots × 1024 positions, 64-token
+    windows; the workload is the reference's 20-token prompts):
+    ``run_campaign`` on three replicas with the alert oracle and
+    ``CHAOS_RECOVERY_WAVES`` clean waves after heal (a seeded storm over
+    the engine's fault sites and one replica kill), ``run_autoscale_campaign`` (a faulted grow held, a
+    grow that serves, a scale-down under load that fails open and
+    retires), then ``measure_autoscale_goodput`` (a Bursty step served
+    before and after a grow).  ``memory_allocated`` before and after each
+    (after a ``gc.collect()``); every ``clone_engine`` (a respawn or a
+    grow) shares the weights, holds one KV pool of its own on the card
+    within ``POOL_RTOL`` and moves the allocator by one pool within
+    ``ALLOC_RTOL`` (``_clone_costs``)."""
+    import torch
+
+    from horovod_tpu_torch.autoscaler import measure_autoscale_goodput
+    from horovod_tpu_torch.chaos import run_autoscale_campaign, run_campaign
+
+    out: dict = {"engine": CHAOS_ENGINE, "n_layers": cfg.n_layers,
+                 "pool_rtol": POOL_RTOL, "alloc_rtol": ALLOC_RTOL}
+    checks: dict = {}
+    memory: dict = {}
+    torch.cuda.empty_cache()
+    memory["before_campaign"] = _allocated()
+    with _clone_costs() as costs:
+        camp = run_campaign(params, cfg, seed=seed, n_replicas=3,
+                            alert_oracle=True,
+                            recovery_waves=CHAOS_RECOVERY_WAVES,
+                            **CHAOS_ENGINE)
+    torch.cuda.empty_cache()
+    memory["after_campaign"] = _allocated()
+    out["campaign"] = {k: camp[k] for k in (
+        "seed", "n_requests", "n_ok", "ok_fraction", "faults_fired",
+        "kills_fired", "respawns", "failovers", "sites_fired", "alerts",
+        "oracles", "ok")}
+    out["campaign_clones"] = costs
+    checks["campaign_ok"] = camp["ok"]
+    checks["campaign_oracles_all_true"] = all(camp["oracles"].values())
+    checks["campaign_respawned"] = camp["respawns"] >= 1
+    checks["campaign_clone_per_respawn"] = len(costs) >= camp["respawns"]
+    checks.update(_pool_checks("campaign", costs))
+
+    memory["before_autoscale"] = _allocated()
+    with _clone_costs() as costs:
+        asc = run_autoscale_campaign(params, cfg, **CHAOS_ENGINE)
+    torch.cuda.empty_cache()
+    memory["after_autoscale"] = _allocated()
+    out["autoscale"] = {k: asc[k] for k in (
+        "n_requests", "n_ok", "grown_replicas", "routed_to_grown",
+        "drain_forced", "dedups", "scale_ups", "scale_downs",
+        "hold_faults", "failovers", "oracles", "ok")}
+    out["autoscale"]["epoch"] = asc["epoch"]["generation"]
+    out["autoscale_clones"] = costs
+    checks["autoscale_ok"] = asc["ok"]
+    checks["autoscale_grew_and_served"] = asc["oracles"]["grew_and_served"]
+    checks["autoscale_retired_back"] = asc["oracles"]["drained_and_retired"]
+    checks["autoscale_epoch_advanced_twice"] = \
+        asc["epoch"]["generation"] == 2
+    checks["autoscale_grow_cloned"] = len(costs) >= 1
+    checks.update(_pool_checks("autoscale", costs))
+
+    memory["before_goodput"] = _allocated()
+    with _clone_costs() as costs:
+        good = measure_autoscale_goodput(params, cfg, seed=seed,
+                                         n_slots=4, max_len=1024, chunk=64)
+    torch.cuda.empty_cache()
+    memory["after_goodput"] = _allocated()
+    out["autoscale_goodput"] = good
+    out["autoscale_goodput_clones"] = costs
+    checks["goodput_scale_ok"] = good["serve_autoscale_scale_ok"]
+    checks.update(_pool_checks("goodput", costs))
+    out["memory_allocated_bytes"] = memory
+    out["retention"] = good["serve_autoscale_goodput_retention"]
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    emit("serve chaos", **out)
+    if not out["ok"]:
+        raise PhaseError("serve chaos failed its checks: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return out
+
+
+def phase_simfleet(seed: int) -> dict:
+    """``run_sim_campaign`` at the reference's scale, host only: 200
+    simulated replicas and 100,000 virtual requests through the port's
+    router, supervisor, autoscaler and alert plane, with a crash storm, a
+    partition wave, a straggler epidemic, a KV-exhaustion ramp and two
+    scripted epoch bumps.  Every oracle and the reference's counts;
+    the wall seconds are recorded, not held to a limit."""
+    from horovod_tpu_torch.simfleet import run_sim_campaign
+
+    t0 = time.perf_counter()
+    rep = run_sim_campaign(seed=seed, n_replicas=200, n_requests=100000)
+    wall = time.perf_counter() - t0
+    checks = {
+        **{f"oracle.{k}": v for k, v in rep["oracles"].items()},
+        "ok": rep["ok"],
+        "respawns_ge_10": rep["respawns"] >= 10,
+        "failovers_ge_10": rep["failovers"] >= 10,
+        "alerts_fired_and_resolved": bool(rep["alerts"]["fired"])
+        and not rep["alerts"]["unresolved"],
+        "shadow_evictions": rep["shadow_evictions"] > 0,
+        "epoch_ge_2": rep["epoch"] >= 2,
+        "scale": rep["n_replicas"] >= 200 and rep["n_requests"] >= 100000,
+    }
+    out = {"wall_s": wall, "report": rep, "checks": checks,
+           "ok": all(checks.values())}
+    emit("fleet simfleet", **out)
+    if not out["ok"]:
+        raise PhaseError("fleet simfleet failed its checks: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return out
+
+
 # ------------------------------------------------------- elastic training
 
 ELASTIC_STEPS = 8
@@ -3720,8 +4300,16 @@ def main(argv=None) -> int:
         phase_engine(cfg, params, args.seed)
         phase = "serve router"
         router = phase_router(cfg, params, args.seed)
+        phase = "serve throughput"
+        thr = phase_throughput(cfg, params, args.seed)
+        phase = "serve load"
+        phase_load(cfg, params, args.seed)
+        phase = "serve chaos"
+        phase_chaos(cfg, params, args.seed)
         del params
         torch.cuda.empty_cache()
+        phase = "fleet simfleet"
+        phase_simfleet(args.seed)
         phase = "train"
         emit("depth cut", path="train", n_layers=args.train_layers, of=32)
         train = phase_train(args.train_layers, args.seed)
@@ -3755,7 +4343,8 @@ def main(argv=None) -> int:
         basics.shutdown()
     print(json.dumps({"kernels": _kernel_rows(build, kern, kern_bwd, gen, bat,
                                               spec, train, kern64, vit,
-                                              eager, router, elastic)}),
+                                              eager, router, elastic,
+                                              thr)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
@@ -3775,10 +4364,10 @@ def _ptx(build, kernel: str) -> dict:
 
 
 def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
-                 vit, eager, router, elastic) -> list[dict]:
+                 vit, eager, router, elastic, thr) -> list[dict]:
     """One row per kernel and head dim: its launches on the main paths
-    (D = 128: serving's generate, batcher and the router's fleet, the Llama
-    train steps; D = 64: the ViT-B/16 train steps, synchronous, under the
+    (D = 128: serving's generate, batcher and the router's fleet,
+    ``measure_throughput``'s static baseline, the Llama train steps; D = 64: the ViT-B/16 train steps, synchronous, under the
     hook-driven optimizer of ``train eager`` and inside ``elastic.run`` in
     ``train elastic``), its largest error over the bf16 cases
     and its times at its main shape (the generate prefill for the forward,
@@ -3802,6 +4391,7 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
         "launches": (gen["launches"] + bat["launches"]
                      + spec["launches"][128]
                      + router["launches"]["flash_fwd_d128"]
+                     + thr["launches"]["flash_fwd_d128"]
                      + train["launches"]["flash_fwd"]),
         "max_abs_err": max(c["o_max_abs_err"] for c in kern["cases"]
                            if c["dtype"] == "bf16"),

@@ -43,10 +43,10 @@ campaigns evaluate production-shaped rules against compressed
 wall-clock storms without a parallel rule table.
 
 :class:`CapacityAdvisor` folds the live series with the last
-``serve_load_report.json`` knee (the reference's load harness) into ``scale_up(n)`` /
+``serve_load_report.json`` knee (:mod:`~horovod_tpu_torch.loadgen`) into ``scale_up(n)`` /
 ``scale_down(n)`` / ``hold`` recommendation records with the evidence
-attached — the input the reference's autoscaler wires to its
-supervisor's actuators.
+attached — the input :class:`~horovod_tpu_torch.autoscaler.FleetAutoscaler`
+wires to the supervisor's actuators.
 """
 
 from __future__ import annotations
@@ -370,10 +370,12 @@ class CapacityAdvisor:
 
     The knee comes from ``load_report`` — per-replica sustainable
     goodput RPS, as a load test's report dict or the path of its JSON
-    file.  Without a report the advisor still works from goodput,
+    file; without one the advisor reads ``serve_load_report.json``
+    under ``HVD_TORCH_BENCH_CACHE`` (else the working directory), where
+    :func:`~horovod_tpu_torch.loadgen.measure_saturation`'s report is
+    written.  Without any report the advisor still works from goodput,
     queue growth, and free-KV slope; it just can't size ``n`` from
-    demand.  (The port has no load test writing a report yet, so
-    nothing is read from a default location.)
+    demand.
     """
 
     def __init__(self, sampler: timeseries_mod.MetricsSampler, *,
@@ -401,13 +403,20 @@ class CapacityAdvisor:
         self._delta_g = self.registry.gauge("advisor.target_delta")
 
     def load_knee(self) -> dict | None:
-        """The knee row from the configured load report: an explicit
-        dict or a path; None without one."""
+        """The knee row from the configured load report: explicit dict,
+        a path, or the load harness's default drop location
+        (``serve_load_report.json`` under ``HVD_TORCH_BENCH_CACHE``, else
+        the working directory)."""
         src = self._load_report
-        if src is None or isinstance(src, dict):
+        if isinstance(src, dict):
             return src
+        path = src
+        if path is None:
+            path = os.path.join(
+                os.environ.get("HVD_TORCH_BENCH_CACHE") or ".",
+                "serve_load_report.json")
         try:
-            with open(src) as f:
+            with open(path) as f:
                 r = json.load(f)
         except (OSError, ValueError):
             return None

@@ -54,8 +54,20 @@ ENV_KNOBS = (
     ("HVD_TORCH_ALERTS", "1",
      "Evaluate ALERT_RULES over the sampled series (0 = off)."),
     ("HVD_TORCH_AUTOSCALE", "0",
-     "Fleet autoscaler on the router; refused until ROADMAP item 16 "
-     "ports it (RouterServer raises NotImplementedError)."),
+     "Actuate CapacityAdvisor recommendations from the router poller."),
+    ("HVD_TORCH_AUTOSCALE_COOLDOWN_S", "30",
+     "Seconds the autoscaler rests between actuations."),
+    ("HVD_TORCH_AUTOSCALE_MAX_REPLICAS", "8",
+     "Fleet size ceiling the autoscaler will not grow past."),
+    ("HVD_TORCH_AUTOSCALE_MIN_REPLICAS", "1",
+     "Fleet size floor the autoscaler will not shrink below."),
+    ("HVD_TORCH_AUTOSCALE_STABLE_S", "60",
+     "Seconds of sustained shrink advice before a scale-down starts."),
+    ("HVD_TORCH_AUTOSCALE_STEP", "1",
+     "Replicas added or retired per autoscaler action at most."),
+    ("HVD_TORCH_BENCH_CACHE", "",
+     "Directory of the capacity advisor's serve_load_report.json "
+     "(default: the working directory)."),
     ("HVD_TORCH_CONTROLLER_TRANSPORT", "",
      "Native control-plane transport: tcp:<host>:<port> or local:<name>."),
     ("HVD_TORCH_DEVICE_POLL_S", "1.0",
@@ -73,6 +85,16 @@ ENV_KNOBS = (
      "generation (unset = unbounded)."),
     ("HVD_TORCH_FLASH_BWD", "kernel",
      "Flash-attention backward: kernel or blockwise (the oracle)."),
+    ("HVD_TORCH_LOAD_DURATION_S", "1.0",
+     "Seconds of offered arrivals per saturation-sweep rung."),
+    ("HVD_TORCH_LOAD_LADDER", "",
+     "Comma-separated offered-RPS rungs for the saturation sweep."),
+    ("HVD_TORCH_LOAD_PROCESS", "poisson",
+     "Load-harness arrival process: poisson, bursty, or fixed."),
+    ("HVD_TORCH_LOAD_SEED", "0",
+     "Seed for load-harness arrival schedules and request mixes."),
+    ("HVD_TORCH_LOAD_TIMEOUT_S", "60",
+     "Seconds the load harness waits for late replies per rung."),
     ("HVD_TORCH_MONITOR_PORT", "",
      "Port for the per-rank /metrics + /healthz HTTP exporter."),
     ("HVD_TORCH_NATIVE_CONTROLLER", "auto",
@@ -97,10 +119,19 @@ ENV_KNOBS = (
      "Seconds between time-series samples of the registry (<= 0 = off)."),
     ("HVD_TORCH_SCHED_POLICY", "fifo",
      "ServeEngine scheduler policy: fifo, priority, or edf."),
+    ("HVD_TORCH_SIM_REPLICAS", "200",
+     "Simulated replica count for the default simfleet campaign."),
+    ("HVD_TORCH_SIM_REQUESTS", "100000",
+     "Offered virtual request count for the default simfleet campaign."),
+    ("HVD_TORCH_SIM_SEED", "0",
+     "Seed for the simfleet campaign (schedule, chaos, per-replica "
+     "jitter)."),
     ("HVD_TORCH_SLO_E2E_S", "0",
      "End-to-end latency SLO in seconds for goodput (0 = no SLO)."),
     ("HVD_TORCH_SPEC", "0",
      "Self-drafting (prompt-lookup) speculative decode in ServeEngine."),
+    ("HVD_TORCH_STRAGGLER_WARN_S", "1.0",
+     "Step-lag threshold in seconds before a straggler warning."),
     ("HVD_TORCH_TP", "1",
      "Tensor-parallel degree of ServeEngine (only 1 is ported)."),
     ("HVD_TORCH_TRACE_SAMPLE", "0",

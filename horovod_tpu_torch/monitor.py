@@ -28,7 +28,7 @@ import the JAX package.  Four pillars:
 * :class:`StragglerDetector` — rolling per-rank step times;
   ``check()`` allgathers the reports, publishes ``hvd.step_skew_s``
   (slowest minus median rank) and emits ``monitor.straggler`` past
-  ``warn_s`` seconds.
+  ``warn_s`` seconds (``HVD_TORCH_STRAGGLER_WARN_S``).
 
 * :class:`SLOWindow` — the ring of terminal request traces behind
   ``serve.goodput`` and ``ServeEngine.slo_report()``.
@@ -458,7 +458,8 @@ class StragglerDetector:
     ``check()`` allgathers everyone's window report, computes
     ``skew = slowest − median`` of mean step time, publishes it as the
     ``hvd.step_skew_s`` gauge, and emits a ``monitor.straggler`` event
-    naming the slowest rank when the skew exceeds ``warn_s`` seconds."""
+    naming the slowest rank when the skew exceeds ``warn_s`` seconds
+    (``HVD_TORCH_STRAGGLER_WARN_S``, default 1.0)."""
 
     # record_step arrives from the engine/training thread while the
     # monitor thread calls report()/check() — the windows and the
@@ -467,10 +468,11 @@ class StragglerDetector:
                         "_neg_seen_count", "_neg_seen_sum")
 
     def __init__(self, registry: metrics_mod.MetricsRegistry | None = None,
-                 window: int = 64, warn_s: float = 1.0):
+                 window: int = 64, warn_s: float | None = None):
         self.registry = (registry if registry is not None
                          else metrics_mod.DEFAULT)
-        self.warn_s = float(warn_s)
+        self.warn_s = (float(warn_s) if warn_s is not None
+                       else env_float("HVD_TORCH_STRAGGLER_WARN_S", 1.0))
         self._lock = threading.Lock()
         self._steps: collections.deque[float] = collections.deque(
             maxlen=window)

@@ -43,10 +43,14 @@ card, and decides per request which replica serves it:
   of the attempt it replaced), and the fleet's ``/device`` view over each
   local engine's ``device_telemetry``.
 
+* **Elastic membership**: a
+  :class:`~horovod_tpu_torch.autoscaler.FleetAutoscaler`
+  (``HVD_TORCH_AUTOSCALE=1`` or ``autoscaler=True``) rides the
+  poll pass after the health plane and actuates the advisor's records
+  through ``add_replica`` / ``cordon_replica`` / ``retire_replica`` and the
+  supervisor's ``spawn_replica``; ``GET /autoscaler`` reports it.
+
 The router itself is host bookkeeping: it allocates nothing on the card.
-The reference's autoscaler (``HVD_TORCH_AUTOSCALE``, an ``autoscaler=``
-argument) is not ported yet (ROADMAP.md Queue A item 16): asking for it
-raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -877,6 +881,15 @@ class _RouterHandler(BaseHTTPRequestHandler):
                 else:
                     self._reply(200, json.dumps(rep),
                                 "application/json")
+            elif path == "/autoscaler":
+                if router.autoscaler is None:
+                    self._reply(404, "no autoscaler attached "
+                                     "(HVD_TORCH_AUTOSCALE)\n",
+                                "text/plain")
+                else:
+                    self._reply(200,
+                                json.dumps(router.autoscaler.report()),
+                                "application/json")
             elif path == "/traces":
                 self._reply(200, json.dumps(router.tracer.recent()),
                             "application/json")
@@ -885,7 +898,7 @@ class _RouterHandler(BaseHTTPRequestHandler):
                                  "/replicas /snapshot /healthz "
                                  "/metrics /state /device "
                                  "/timeseries /alerts /advice "
-                                 "/traces\n",
+                                 "/autoscaler /traces\n",
                             "text/plain")
         except BrokenPipeError:
             pass
@@ -991,13 +1004,8 @@ class RouterServer:
                  drain_s: float = 5.0,
                  sampler: "Any | bool | None" = None,
                  alerts: "Any | bool | None" = None,
-                 autoscaler: Any = None,
+                 autoscaler: bool | None = None,
                  clock: Callable[[], float] = time.monotonic):
-        if autoscaler is not None or os.environ.get(
-                "HVD_TORCH_AUTOSCALE", "0") not in ("", "0"):
-            raise NotImplementedError(
-                "the fleet autoscaler (HVD_TORCH_AUTOSCALE, autoscaler=) is "
-                "not ported yet: ROADMAP.md Queue A item 16")
         if not replicas:
             raise ValueError("router needs at least one replica")
         self.replicas: list[ReplicaHandle] = []
@@ -1166,6 +1174,24 @@ class RouterServer:
         self.advisor = (alerts_mod.CapacityAdvisor(
             self.sampler, alerts=self.alerts, registry=self.metrics)
             if self.sampler is not None else None)
+        #: A :class:`~horovod_tpu_torch.autoscaler.FleetAutoscaler`, once
+        #: attached: ticked by the poller after the health plane, so it
+        #: actuates against this pass's fresh views.  As in the
+        #: reference, ``maybe_autoscaler`` attaches one when
+        #: ``HVD_TORCH_AUTOSCALE`` is set (and the advisor is live);
+        #: ``autoscaler=True`` attaches one whatever the knob says, its
+        #: guards from the ``HVD_TORCH_AUTOSCALE_*`` knobs.  A
+        #: ``FleetAutoscaler(router, ...)`` built later attaches itself
+        #: the same way, with its own arguments.
+        from horovod_tpu_torch import autoscaler as autoscaler_mod
+        if autoscaler not in (None, True):
+            raise ValueError(f"autoscaler must be None or True, "
+                             f"got {autoscaler!r}")
+        self.autoscaler: Any = None
+        if autoscaler:
+            autoscaler_mod.FleetAutoscaler(self, enabled=True)
+        else:
+            autoscaler_mod.maybe_autoscaler(self)
 
         self._httpd = RouterServer._Server((host, port), _RouterHandler)
         self._httpd.router = self
@@ -1972,6 +1998,9 @@ class RouterServer:
             self.sampler.tick()
             if self.alerts is not None:
                 self.alerts.tick()
+        asc = self.autoscaler
+        if asc is not None:
+            asc.tick()
         self.reap_tickets()
         self.metrics.gauge("router.fleet_size").set(len(self.replicas))
         self.metrics.histogram("router.poll_s").observe(
@@ -2030,6 +2059,9 @@ class RouterServer:
                     "cordoned": cordoned, "draining": draining}
         sup = self.supervisor
         body["degraded"] = bool(sup is not None and sup.degraded())
+        asc = self.autoscaler
+        if asc is not None:
+            body["epoch"] = asc.epoch.generation
         return (200 if body["ok"] else 503), body
 
     def state_dump(self) -> str:
@@ -2071,6 +2103,14 @@ class RouterServer:
             rec = self.advisor.recommend()
             lines.append(f"  advice: {rec['action']} n={rec['n']} "
                          f"({rec['reason']})")
+        asc = self.autoscaler
+        if asc is not None:
+            arep = asc.report()
+            last = arep["last_action"]
+            lines.append(
+                f"  autoscaler: epoch={arep['epoch']['generation']} "
+                f"size={arep['size']} draining={arep['draining']}"
+                + (f" last={last['action']}" if last else ""))
         sup = self.supervisor
         if sup is not None:
             for name, st in sorted(sup.state().items()):

@@ -60,7 +60,9 @@ program, ``serve.mfu``, the HBM gauges and the ``device_sync`` split).
 The reference keeps its telemetry plane at ``engine.device``; here
 ``device`` is the torch device and the plane is ``device_telemetry``.
 
-Not ported yet (ROADMAP item 16): ``measure_throughput`` and its siblings.
+:func:`measure_throughput`, :func:`measure_prefix_throughput` and
+:func:`measure_spec_throughput` are the bench arms; the reference's
+``measure_tp_throughput`` waits for tensor-parallel serving.
 Tensor-parallel serving (``tp_size > 1``, ROADMAP item 12b) raises
 ``NotImplementedError``.  The engine is greedy-only; sampling pools stay
 on :class:`~horovod_tpu_torch.serving.ContinuousBatcher`.
@@ -1590,3 +1592,420 @@ class ServeEngine:
         while self.pending():
             self.step()
         return [self.results[i] for i in ids]
+
+
+# ---------------------------------------------------------------------------
+# Throughput measurement (the serve_tokens_per_sec bench metric).
+# ---------------------------------------------------------------------------
+
+
+def _wait(device: torch.device) -> None:
+    """End a timed window: the card's queued work counts in it (the
+    reference's ``jax.block_until_ready``)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def measure_throughput(
+    params: dict, cfg: llama.LlamaConfig, requests: list[Request], *,
+    n_slots: int, max_len: int, chunk: int,
+    block_size: int | None = None, n_blocks: int | None = None,
+    preempt_after: int | None = None, keep_tokens: bool = False,
+) -> dict:
+    """Continuous-batching vs fixed-batch throughput on one workload.
+
+    The engine serves the queue with slot recycling; the static baseline
+    is plain :func:`llama.generate` over fixed batches of ``n_slots`` in
+    submission order — every batch decodes until its LONGEST budget is
+    spent and prompts pad to the global maximum (the costs continuous
+    batching exists to remove).  Both paths are warmed before timing (the
+    engine by a full pass, every static batch by one untimed ``generate``,
+    as the reference's ``jax.jit`` cache is warmed per token budget); only
+    true emitted tokens count, for both.  Each static batch's prefill
+    launches the flash forward once a layer.  Returns
+    ``serve_tokens_per_sec``, ``static_tokens_per_sec``,
+    ``serve_vs_static_ratio``, ``preemptions`` (timed pass only; nonzero
+    only with ``preempt_after`` on an overcommitted ``n_blocks`` pool),
+    latency percentiles from the metrics-on pass
+    (``serve_ttft_p50_ms`` .. ``serve_e2e_p99_ms``),
+    ``serve_metrics_overhead_pct`` (instrumented vs null-registry pass),
+    ``monitor_overhead_pct`` (exporter on and scraped at ~100 Hz),
+    ``serve_profiler_overhead_pct`` (phase profiler on),
+    ``serve_health_overhead_pct`` (time-series sampler + alert
+    evaluation in the step loop at 20 Hz), ``serve_trace_overhead_pct``
+    (causal span plane at 100 % head sampling) and
+    ``device_telemetry_overhead_pct`` (device telemetry plane on: counted
+    dispatches, the sync split and the per-step gauges; its leg also
+    yields ``serve_mfu`` — None when no peak is known, as on the CPU —
+    ``serve_model_flops_per_token``, ``serve_device_flops_per_s`` and
+    ``serve_overlap_headroom_pct``) — all min-of-2 passes against an
+    adjacent min-of-2 metrics-on base, so inter-pass drift doesn't
+    masquerade as overhead — with ``serve_phase_pct`` /
+    ``serve_phase_mean_ms`` per-phase breakdowns, ``serve_goodput``
+    (windowed SLO goodput after the timed passes), ``static_batches``
+    and workload shape fields.  ``keep_tokens=True`` adds each request's
+    tokens from the timed engine pass and from the static baseline
+    (``serve_tokens``, ``static_tokens``).  On CUDA every timed window
+    ends with ``torch.cuda.synchronize()``.
+    """
+    import threading
+
+    if not requests:
+        raise ValueError("empty workload")
+
+    eng = ServeEngine(params, cfg, n_slots=n_slots, max_len=max_len,
+                      chunk=chunk, block_size=block_size,
+                      n_blocks=n_blocks, preempt_after=preempt_after,
+                      metrics=metrics_mod.NULL)
+    warm = eng.run(requests)
+    assert all(r.ok for r in warm), [r.status for r in warm]
+    n_tokens = sum(len(t) for t in warm)
+    # the timed passes reuse the SAME engine: after run() every slot is
+    # free, so the pool is in its admission-ready state again.  Metrics
+    # ON is the shipping configuration, so it is the primary number; a
+    # second pass with the null registry prices the instrumentation.
+    reg = metrics_mod.MetricsRegistry(event_log=None)
+    eng.metrics = reg
+    preempt0 = eng.counters["preemptions"]
+    served: list = []
+
+    def _timed_pass() -> float:
+        _wait(eng.device)
+        t0 = time.perf_counter()
+        out = eng.run(requests)
+        _wait(eng.device)
+        dt = time.perf_counter() - t0
+        assert [len(t) for t in out] == [len(t) for t in warm]
+        served[:] = out
+        return dt
+
+    t_serve = _timed_pass()
+    serve_tokens = [[int(t) for t in r] for r in served]
+    preemptions = eng.counters["preemptions"] - preempt0
+    eng.metrics = metrics_mod.NULL
+    t_serve_off = _timed_pass()
+    hist = {name: reg.histogram(name)
+            for name in ("serve.ttft_s", "serve.tpot_s",
+                         "serve.queue_wait_s", "serve.e2e_s")}
+
+    # Overhead arms, each INTERLEAVED with a fresh metrics-on base —
+    # base, arm, base, arm — both sides taking their min (the
+    # drift-robust estimator); the overheads are deltas between mins.
+    mon_reg = metrics_mod.MetricsRegistry(event_log=None)
+    mon = monitor_mod.MonitorServer(mon_reg, eng, port=0).start()
+    scraping_on = threading.Event()
+    stop_scraping = threading.Event()
+
+    def _scrape_loop() -> None:
+        import urllib.request
+        url = f"http://{mon.host}:{mon.port}/metrics"
+        while not stop_scraping.is_set():
+            if scraping_on.is_set():
+                try:
+                    urllib.request.urlopen(url, timeout=1).read()
+                except OSError:
+                    pass
+                stop_scraping.wait(0.01)
+            else:
+                stop_scraping.wait(0.001)
+
+    scraper = threading.Thread(target=_scrape_loop, daemon=True)
+    scraper.start()
+    preg = metrics_mod.MetricsRegistry(event_log=None)
+    prof = profiler_mod.TickProfiler(preg, timeline=eng.timeline)
+    hreg = metrics_mod.MetricsRegistry(event_log=None)
+    # 20 Hz sampling is 20x the shipping default: the health arm prices
+    # a deliberately aggressive cadence.
+    hsampler = timeseries_mod.MetricsSampler(hreg, sample_s=0.05)
+    halerts = alerts_mod.AlertManager(hsampler, registry=hreg)
+    treg = metrics_mod.MetricsRegistry(event_log=None)
+    ttracer = tracing_mod.Tracer(treg)
+    dreg = metrics_mod.MetricsRegistry(event_log=None)
+    dtel = device_telemetry_mod.DeviceTelemetry(dreg, device=eng.device)
+    # The cost capture happens OUTSIDE the timed passes: it is a
+    # construction-time cost in the shipping configuration too.
+    eng._device_capture_programs(dtel)
+    orig_tracer, orig_fraction = eng.tracer, eng._trace_fraction
+    t_base = t_serve_mon = t_serve_prof = float("inf")
+    t_serve_health = t_serve_trace = t_serve_dev = float("inf")
+    dev_pass_flops = 0.0
+    try:
+        for _ in range(2):
+            # base leg: metrics on, no exporter scrape, no profiler
+            eng.metrics = metrics_mod.MetricsRegistry(event_log=None)
+            t_base = min(t_base, _timed_pass())
+            # monitor leg: the exporter ON and scraped while serving
+            eng.metrics = mon_reg
+            scraping_on.set()
+            t_serve_mon = min(t_serve_mon, _timed_pass())
+            scraping_on.clear()
+            # profiler leg: per-tick phase timing ON
+            eng.metrics = preg
+            eng.prof = prof
+            t_serve_prof = min(t_serve_prof, _timed_pass())
+            eng.prof = None
+            # health leg: sampler + alert evaluation in the step loop
+            eng.metrics = hreg
+            eng.sampler = hsampler
+            eng.alerts = halerts
+            t_serve_health = min(t_serve_health, _timed_pass())
+            eng.sampler = None
+            eng.alerts = None
+            # trace leg: the span plane at 100 % head sampling
+            eng.metrics = treg
+            eng.tracer = ttracer
+            eng._trace_fraction = 1.0
+            t_serve_trace = min(t_serve_trace, _timed_pass())
+            eng._trace_fraction = orig_fraction
+            # device leg: counted dispatches + sync split + gauges
+            eng.metrics = dreg
+            eng.device_telemetry = dtel
+            dev_flops0 = dtel.total_flops
+            t_serve_dev = min(t_serve_dev, _timed_pass())
+            dev_pass_flops = dtel.total_flops - dev_flops0
+            eng.device_telemetry = None
+    finally:
+        eng.prof = None
+        eng.sampler = None
+        eng.alerts = None
+        eng.device_telemetry = None
+        eng.tracer = orig_tracer
+        eng._trace_fraction = orig_fraction
+        stop_scraping.set()
+        scraper.join(timeout=5)
+        mon.stop()
+    prof_report = prof.report()
+    dev_report = dtel.report()
+
+    # static baseline: batches of n_slots in submission order, padded to
+    # the workload's longest prompt, each decoding its longest budget;
+    # every batch runs once untimed before the timed pass
+    pad_w = max(len(r.prompt) for r in requests)
+    batches = []
+    for i in range(0, len(requests), n_slots):
+        group = requests[i:i + n_slots]
+        while len(group) < n_slots:          # pad rows don't count below
+            group.append(group[0])
+        toks = np.zeros((n_slots, pad_w), np.int64)
+        lens = np.zeros((n_slots,), np.int64)
+        for j, r in enumerate(group):
+            toks[j, :len(r.prompt)] = r.prompt
+            lens[j] = len(r.prompt)
+        mn = max(r.max_new_tokens for r in group)
+        batches.append((torch.as_tensor(toks, device=eng.device),
+                        torch.as_tensor(lens, device=eng.device), mn))
+
+    def _static() -> list:
+        with torch.no_grad():
+            return [llama.generate(params, toks, cfg, max_new_tokens=mn,
+                                   max_len=max_len, prompt_lengths=lens)
+                    for toks, lens, mn in batches]
+
+    _static()                                # warm every batch shape
+    _wait(eng.device)
+    t0 = time.perf_counter()
+    outs = _static()
+    _wait(eng.device)
+    t_static = time.perf_counter() - t0
+
+    result = {
+        "serve_tokens_per_sec": n_tokens / t_serve,
+        "static_tokens_per_sec": n_tokens / t_static,
+        "serve_vs_static_ratio": t_static / t_serve,
+        "preemptions": preemptions,
+        "serve_ttft_p50_ms": hist["serve.ttft_s"].percentile(0.5) * 1e3,
+        "serve_ttft_p99_ms": hist["serve.ttft_s"].percentile(0.99) * 1e3,
+        "serve_tpot_p50_ms": hist["serve.tpot_s"].percentile(0.5) * 1e3,
+        "serve_queue_wait_p99_ms":
+            hist["serve.queue_wait_s"].percentile(0.99) * 1e3,
+        "serve_e2e_p99_ms": hist["serve.e2e_s"].percentile(0.99) * 1e3,
+        "serve_metrics_overhead_pct":
+            (t_serve - t_serve_off) / t_serve_off * 100.0,
+        "monitor_overhead_pct":
+            (t_serve_mon - t_base) / t_base * 100.0,
+        "serve_profiler_overhead_pct":
+            (t_serve_prof - t_base) / t_base * 100.0,
+        "serve_health_overhead_pct":
+            (t_serve_health - t_base) / t_base * 100.0,
+        "serve_trace_overhead_pct":
+            (t_serve_trace - t_base) / t_base * 100.0,
+        "device_telemetry_overhead_pct":
+            (t_serve_dev - t_base) / t_base * 100.0,
+        # None where no peak is known (the CPU): never coerce it to 0
+        "serve_mfu": dev_report["win"]["mfu"],
+        "serve_model_flops_per_token": dev_pass_flops / n_tokens,
+        "serve_device_flops_per_s": dev_report["win"]["flops_per_s"],
+        "serve_overlap_headroom_pct":
+            dev_report["win"]["overlap_headroom_pct"],
+        "device_peak_flops_known": dev_report["peak_flops_known"],
+        "serve_phase_pct": {
+            p: prof_report["phases"][p]["pct_of_tick"]
+            for p in profiler_mod.PHASES},
+        "serve_phase_mean_ms": {
+            p: prof_report["phases"][p]["mean_s"] * 1e3
+            for p in profiler_mod.PHASES},
+        "serve_goodput": eng.slo.goodput(),
+        "static_batches": len(batches),
+        "tokens": n_tokens,
+        "n_requests": len(requests),
+        "n_slots": n_slots,
+        "max_len": max_len,
+        "chunk": chunk,
+    }
+    if keep_tokens:
+        result["serve_tokens"] = serve_tokens
+        result["static_tokens"] = [
+            out[j, :r.max_new_tokens].tolist()
+            for b, out in enumerate(outs)
+            for j, r in enumerate(requests[b * n_slots:
+                                           (b + 1) * n_slots])]
+    return result
+
+
+def measure_prefix_throughput(
+    params: dict, cfg: llama.LlamaConfig, requests: list[Request], *,
+    n_slots: int, max_len: int, chunk: int,
+    block_size: int | None = None, n_blocks: int | None = None,
+) -> dict:
+    """Prefix-cache-on vs cache-off throughput on one workload (the
+    ``serve_prefix_*`` bench metrics).
+
+    Both engines serve the same queue; the cache-on engine is warmed by
+    a full untimed pass (which also populates the radix index — the
+    steady state of a server that has seen its system prompt before),
+    mirrored by an untimed cache-off warmup, so the timed passes compare
+    prefill-skipping against recompute on equal footing.  Outputs are
+    asserted token-identical between the two engines (the parity
+    guarantee).  Returns ``serve_prefix_tokens_per_sec`` (cache on),
+    ``serve_prefix_off_tokens_per_sec``, ``serve_prefix_speedup``,
+    ``serve_prefix_hit_rate`` (admissions with >= 1 reused block over
+    all admissions, timed pass), ``serve_prefix_tokens_skipped`` and
+    workload shape fields.
+    """
+    if not requests:
+        raise ValueError("empty workload")
+    kw = dict(n_slots=n_slots, max_len=max_len, chunk=chunk,
+              block_size=block_size, n_blocks=n_blocks)
+    timings: dict[bool, float] = {}
+    outputs: dict[bool, list[RequestResult]] = {}
+    hit_rate = 0.0
+    tokens_skipped = 0
+    n_tokens = 0
+    for cache_on in (False, True):
+        eng = ServeEngine(params, cfg, prefix_cache=cache_on, **kw)
+        warm = eng.run(requests)
+        assert all(r.ok for r in warm), [r.status for r in warm]
+        n_tokens = sum(len(t) for t in warm)
+        hits0 = eng.prefix_counters["hits"]
+        skip0 = eng.prefix_counters["tokens_skipped"]
+        _wait(eng.device)
+        t0 = time.perf_counter()
+        out = eng.run(requests)
+        _wait(eng.device)
+        timings[cache_on] = time.perf_counter() - t0
+        outputs[cache_on] = out
+        if cache_on:
+            hit_rate = ((eng.prefix_counters["hits"] - hits0)
+                        / len(requests))
+            tokens_skipped = (eng.prefix_counters["tokens_skipped"]
+                              - skip0)
+    assert [list(a) for a in outputs[True]] == \
+        [list(b) for b in outputs[False]], "prefix-cache parity broken"
+    return {
+        "serve_prefix_tokens_per_sec": n_tokens / timings[True],
+        "serve_prefix_off_tokens_per_sec": n_tokens / timings[False],
+        "serve_prefix_speedup": timings[False] / timings[True],
+        "serve_prefix_hit_rate": hit_rate,
+        "serve_prefix_tokens_skipped": tokens_skipped,
+        "tokens": n_tokens,
+        "n_requests": len(requests),
+        "n_slots": n_slots,
+        "max_len": max_len,
+        "chunk": chunk,
+    }
+
+
+def measure_spec_throughput(
+    params: dict, cfg: llama.LlamaConfig, requests: list[Request], *,
+    n_slots: int, max_len: int, chunk: int,
+    block_size: int | None = None, n_blocks: int | None = None,
+    draft_k: int = 4, keep_tokens: bool = False,
+) -> dict:
+    """Speculation-on vs plain-decode throughput on one workload (the
+    ``serve_spec_*`` bench metrics).
+
+    Both engines serve the same queue; each is warmed by a full untimed
+    pass, then timed on a second pass.  Outputs are asserted
+    token-identical between the two engines — the greedy bit-identity
+    guarantee of :func:`llama.spec_verify_paged
+    <horovod_tpu_torch.models.llama.spec_verify_paged>` — so the ratio
+    prices pure scheduling, never output drift.  Returns
+    ``serve_spec_tokens_per_sec`` (spec on),
+    ``serve_spec_plain_tokens_per_sec``, ``serve_spec_vs_plain_ratio``,
+    ``serve_spec_accepted_per_round`` (mean accepted drafts per decoding
+    row per verify round, timed pass), ``serve_spec_rounds`` (timed-pass
+    verify ticks), ``draft_k`` and workload shape fields.  The ratio
+    beats 1 exactly when acceptance buys more rounds than the wider tick
+    costs.
+
+    ``keep_tokens=True`` returns both engines' tokens
+    (``serve_spec_tokens``, ``serve_spec_plain_tokens``) instead of
+    asserting them equal, for a caller that holds them to a tolerance: on the card, bf16 products
+    over the verify tick's ``draft_k + 1`` rows a slot need not round as
+    the plain tick's one row does, so a near-tie can flip a token.
+
+    ``measure_tp_throughput``, the reference's tensor-parallel sweep,
+    waits for tensor-parallel serving (ROADMAP item 12b).
+    """
+    if not requests:
+        raise ValueError("empty workload")
+    kw = dict(n_slots=n_slots, max_len=max_len, chunk=chunk,
+              block_size=block_size, n_blocks=n_blocks,
+              metrics=metrics_mod.NULL)
+    timings: dict[bool, float] = {}
+    outputs: dict[bool, list[RequestResult]] = {}
+    n_tokens = 0
+    accepted_per_round = 0.0
+    rounds = 0
+    for spec_on in (False, True):
+        eng = ServeEngine(params, cfg, spec=spec_on, draft_k=draft_k,
+                          **kw)
+        warm = eng.run(requests)
+        assert all(r.ok for r in warm), [r.status for r in warm]
+        n_tokens = sum(len(t) for t in warm)
+        acc0 = eng.spec_counters["accepted"]
+        rr0 = eng.spec_counters["row_rounds"]
+        rounds0 = eng.spec_counters["rounds"]
+        _wait(eng.device)
+        t0 = time.perf_counter()
+        out = eng.run(requests)
+        _wait(eng.device)
+        timings[spec_on] = time.perf_counter() - t0
+        outputs[spec_on] = out
+        if spec_on:
+            rr = eng.spec_counters["row_rounds"] - rr0
+            accepted_per_round = (
+                (eng.spec_counters["accepted"] - acc0) / rr if rr
+                else 0.0)
+            rounds = eng.spec_counters["rounds"] - rounds0
+    tokens = {on: [[int(t) for t in r] for r in outputs[on]]
+              for on in (False, True)}
+    if not keep_tokens:
+        assert tokens[True] == tokens[False], "speculation parity broken"
+    result = {
+        "serve_spec_tokens_per_sec": n_tokens / timings[True],
+        "serve_spec_plain_tokens_per_sec": n_tokens / timings[False],
+        "serve_spec_vs_plain_ratio": timings[False] / timings[True],
+        "serve_spec_accepted_per_round": accepted_per_round,
+        "serve_spec_rounds": rounds,
+        "draft_k": draft_k,
+        "tokens": n_tokens,
+        "n_requests": len(requests),
+        "n_slots": n_slots,
+        "max_len": max_len,
+        "chunk": chunk,
+    }
+    if keep_tokens:
+        result["serve_spec_tokens"] = tokens[True]
+        result["serve_spec_plain_tokens"] = tokens[False]
+    return result

@@ -459,14 +459,27 @@ def test_maybe_sampler_and_maybe_alerts_env_gates(monkeypatch):
 
 
 def test_advisor_without_a_report_reads_no_file(tmp_path, monkeypatch):
-    """No ``load_report``: no knee, even with a report in the working
-    directory (the port has no load test that writes one)."""
+    """No ``load_report``: the advisor reads ``serve_load_report.json``
+    from ``HVD_TORCH_BENCH_CACHE``, else the working directory (the
+    reference's default drop location, where the load harness's report
+    goes); with the knob at a directory without a report there is no knee,
+    whatever the working directory holds, and the reference's
+    ``HVD_TPU_BENCH_CACHE`` does not reach the port."""
     (tmp_path / "serve_load_report.json").write_text(
         json.dumps({"serve_load_knee_goodput_rps": 4.0}))
+    cache = tmp_path / "cache"
+    cache.mkdir()
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("HVD_TPU_BENCH_CACHE", str(tmp_path))
+    monkeypatch.setenv("HVD_TORCH_BENCH_CACHE", str(cache))
     reg, clk, s, am = _setup(PORT, "goodput_burn_fast")
     for _ in range(3):
         _tick(clk, s, am)
     adv = talerts.CapacityAdvisor(s, alerts=am, registry=reg, clock=clk)
     assert adv.load_knee() is None
     assert adv.recommend()["evidence"]["knee_goodput_rps"] is None
+    (cache / "serve_load_report.json").write_text(
+        json.dumps({"serve_load_knee_goodput_rps": 3.0}))
+    assert adv.load_knee() == {"serve_load_knee_goodput_rps": 3.0}
+    monkeypatch.delenv("HVD_TORCH_BENCH_CACHE")
+    assert adv.load_knee() == {"serve_load_knee_goodput_rps": 4.0}

@@ -82,8 +82,27 @@ def test_the_new_planes_have_rows():
 def test_the_elastic_router_and_supervisor_knobs_have_rows():
     rows = {k.name: k for k in knobs.knobs()}
     # the router's deployment settings are knobs; its tuning settings and
-    # the supervisor's are constructor arguments (ROADMAP item 16)
+    # the supervisor's are constructor arguments, which the fleet's own
+    # callers (loadgen, chaos, simfleet) pass directly
     assert {"HVD_TORCH_ELASTIC_RETRIES", "HVD_TORCH_AUTOSCALE",
             "HVD_TORCH_ROUTER_JOURNAL", "HVD_TORCH_ROUTER_POLICY",
             "HVD_TORCH_ROUTER_POLL_S", "HVD_TORCH_ROUTER_PORT"} <= set(rows)
-    assert "ROADMAP item 16" in rows["HVD_TORCH_AUTOSCALE"].help
+    assert not any(n.startswith(("HVD_TORCH_ROUTER_DRAIN",
+                                 "HVD_TORCH_SUPERVISE")) for n in rows)
+    # the autoscaler is ported: its row says what it does, not a refusal
+    assert "ROADMAP" not in rows["HVD_TORCH_AUTOSCALE"].help
+    assert rows["HVD_TORCH_AUTOSCALE"].help == \
+        {k.name: k for k in jknobs.knobs()}["HVD_TPU_AUTOSCALE"].help
+
+
+def test_the_control_plane_knobs_have_rows():
+    rows = {k.name for k in knobs.knobs()}
+    assert {"HVD_TORCH_AUTOSCALE_COOLDOWN_S",
+            "HVD_TORCH_AUTOSCALE_MAX_REPLICAS",
+            "HVD_TORCH_AUTOSCALE_MIN_REPLICAS", "HVD_TORCH_AUTOSCALE_STABLE_S",
+            "HVD_TORCH_AUTOSCALE_STEP", "HVD_TORCH_BENCH_CACHE",
+            "HVD_TORCH_LOAD_DURATION_S", "HVD_TORCH_LOAD_LADDER",
+            "HVD_TORCH_LOAD_PROCESS", "HVD_TORCH_LOAD_SEED",
+            "HVD_TORCH_LOAD_TIMEOUT_S", "HVD_TORCH_SIM_REPLICAS",
+            "HVD_TORCH_SIM_REQUESTS", "HVD_TORCH_SIM_SEED",
+            "HVD_TORCH_STRAGGLER_WARN_S"} <= rows

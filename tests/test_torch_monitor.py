@@ -446,9 +446,13 @@ def test_straggler_pulls_negotiate_deltas_and_env(monkeypatch):
     n_before = len(det._negotiates)
     det.report()
     assert len(det._negotiates) == n_before
-    # no env knob: the threshold is the argument, 1 s by default
+    # the threshold: the argument, else HVD_TORCH_STRAGGLER_WARN_S, else
+    # 1 s; the reference's knob does not reach the port
     monkeypatch.setenv("HVD_TPU_STRAGGLER_WARN_S", "2.5")
     assert StragglerDetector(reg).warn_s == 1.0
+    monkeypatch.setenv("HVD_TORCH_STRAGGLER_WARN_S", "0.25")
+    assert StragglerDetector(reg).warn_s == 0.25
+    assert StragglerDetector(reg, warn_s=3.0).warn_s == 3.0
 
 
 # ---------------------------------------------------------------------------

@@ -70,8 +70,16 @@ def test_port_modules_import_without_jax():
             "horovod_tpu_torch.elastic", "horovod_tpu_torch.torch_elastic",
             "horovod_tpu_torch.router", "horovod_tpu_torch.supervisor",
             "horovod_tpu_torch.examples.pytorch_elastic",
+            "horovod_tpu_torch.loadgen", "horovod_tpu_torch.autoscaler",
+            "horovod_tpu_torch.chaos", "horovod_tpu_torch.simfleet",
+            "horovod_tpu_torch.tools",
+            "horovod_tpu_torch.tools.device_report",
+            "horovod_tpu_torch.tools.trace_report",
+            "horovod_tpu_torch.tools.chaos_run",
+            "horovod_tpu_torch.tools.simfleet_run",
+            "horovod_tpu_torch.tools.perf_gate",
             } <= set(mods)
-    assert len(mods) >= 64
+    assert len(mods) >= 74
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
@@ -112,12 +120,14 @@ def test_entry_points_raise_without_cuda():
     from horovod_tpu_torch import resolve_device
     from horovod_tpu_torch.models import llama
     from horovod_tpu_torch.models.convert import params_from_jax
+    from horovod_tpu_torch.tools import chaos_run
 
     cfg = llama.llama_tiny()
     for call in (lambda: resolve_device(),
                  lambda: llama.init_params(cfg),
                  lambda: llama.init_cache(cfg, 1, 8),
-                 lambda: params_from_jax({"w": [1.0]})):
+                 lambda: params_from_jax({"w": [1.0]}),
+                 lambda: chaos_run._build_world(None)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu").type == "cpu"

@@ -1090,19 +1090,52 @@ def test_journal_replay_rejoins_original_trace(world, tmp_path):
                for n in _walk(node))
 
 
-# -- guards: the unported autoscaler is refused, never ignored ----------------
+# -- the autoscaler: attached by argument or knob, served at /autoscaler ------
 
 
-def test_autoscaler_is_refused_not_ignored(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        RouterServer([_EchoReplica()], autoscaler=object(), sampler=False)
-    monkeypatch.setenv("HVD_TORCH_AUTOSCALE", "1")
-    with pytest.raises(NotImplementedError, match="HVD_TORCH_AUTOSCALE"):
-        RouterServer([_EchoReplica()], sampler=False)
+def test_autoscaler_is_attached_and_reported(monkeypatch):
+    """``autoscaler=`` and ``HVD_TORCH_AUTOSCALE=1`` attach a live
+    ``FleetAutoscaler`` (the poller ticks it, ``/autoscaler`` reports it,
+    ``health()`` carries its epoch); without either there is none."""
+    from horovod_tpu_torch.autoscaler import FleetAutoscaler
+
     monkeypatch.setenv("HVD_TORCH_AUTOSCALE", "0")
     router = RouterServer([_EchoReplica()], sampler=False)
     try:
+        assert router.autoscaler is None
         assert "epoch" not in router.health()[1]
+    finally:
+        router.stop()
+    monkeypatch.setenv("HVD_TORCH_AUTOSCALE_COOLDOWN_S", "0")
+    router = RouterServer([_EchoReplica()], sampler=False,
+                          autoscaler=True).start()
+    try:
+        asc = router.autoscaler
+        assert isinstance(asc, FleetAutoscaler) and asc.enabled
+        assert asc.cooldown_s == 0.0 and asc.router is router
+        with urllib.request.urlopen(
+                f"http://{router.host}:{router.port}/autoscaler",
+                timeout=30) as r:
+            body = json.loads(r.read())
+        assert body["enabled"] and body["size"] == 1
+        assert body["epoch"]["members"] == [router.replicas[0].name]
+        assert router.health()[1]["epoch"] == 0
+        assert "autoscaler: epoch=0" in router.state_dump()
+    finally:
+        router.stop()
+    with pytest.raises(ValueError, match="autoscaler must be"):
+        RouterServer([_EchoReplica()], sampler=False, autoscaler=object())
+    with pytest.raises(ValueError, match="autoscaler must be"):
+        RouterServer([_EchoReplica()], sampler=False, autoscaler=False)
+    monkeypatch.setenv("HVD_TORCH_AUTOSCALE", "1")
+    monkeypatch.setenv("HVD_TORCH_AUTOSCALE_MAX_REPLICAS", "3")
+    router = RouterServer([_EchoReplica()])
+    try:
+        asc = router.autoscaler
+        assert isinstance(asc, FleetAutoscaler) and asc.enabled
+        assert asc.max_replicas == 3 and router.advisor is not None
+        router.poll_now()                   # the poller's tick runs it
+        assert asc.report()["last_decision"] is not None
     finally:
         router.stop()
 
