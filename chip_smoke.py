@@ -120,6 +120,25 @@ Phases, one JSON line each; any failure exits non-zero before the result:
    the Hopper backward kernels; the loss must fall; step 0's
    gradients must agree with the blockwise recompute and the fused loss
    with the plain one.
+   Then, at the same width cut to 4 of 32 layers (the same batch), on the
+   same world of one: ``train sequence_parallel``: the ``ulysses_flash``
+   logits (two all-to-alls around the flash kernels) bit for bit against
+   ``flash``, the ``ring`` logits against the blockwise engine with one
+   block (bit-equality recorded, within ``LOGIT_RTOL``), then one remat
+   training step of each from the same weights: loss and every gradient
+   bit for bit, 8 forward, 4 dQ and 4 dK/dV launches a step.  ``train
+   zero`` and ``train fsdp``: three AdamW steps (clip 1.0) of
+   ``make_zero_train_step`` and of ``make_fsdp_train_step`` from the
+   same weights as three of the replicated ``DistributedOptimizer``
+   route (its parameters after each step kept on the host): each step's
+   loss and every leaf within ``PARAM_RTOL`` (bit-equality recorded),
+   the launches as above, step seconds and peak memory of each route.
+   ``train pipeline_moe``: a 1-stage ``pipeline_forward`` of a
+   Llama-width SwiGLU block against the stage run microbatch by
+   microbatch (bit for bit; the loss's gradients within
+   ``BF16_GRAD_RTOL``), and ``expert_parallel_mlp`` against
+   ``moe.forward`` at ``MoEConfig``'s own widths, 4,096 bf16 tokens, with
+   gradients.
 
 8. ``kernel d64`` (run right after ``kernel flash_bwd``): the three
    kernels at head dim 64, the ViT's (the Hopper D = 64 kernels for
@@ -1928,6 +1947,401 @@ def phase_train(n_layers: int, seed: int) -> dict:
         raise PhaseError(f"train failed its checks: "
                          f"{[k for k, v in checks.items() if not v]}")
     return {"launches": {k: sum(p[k] for p in per_step) for k in want}}
+
+
+# -- sharded training strategies ---------------------------------------------
+
+# Llama-3-8B width cut to 4 of 32 layers (1.92 B parameters, 7.7 GB in
+# f32): the replicated step holds weights, gradients and AdamW's two
+# moments (31 GB) beside the source weights every route starts from.
+SHARDED_LAYERS = 4
+SHARDED_STEPS = 3
+# ZeRO and FSDP against the replicated route, per leaf ‖a − b‖ / ‖b‖ after
+# each step.  At a world of one the collectives copy and the sharded
+# routes' clip is clip_grad_norm_'s arithmetic, so they run the replicated
+# route's arithmetic (bit-equality recorded).  A last-bit difference is
+# amplified by the bf16 casts and AdamW's normalised update: an
+# optax-style clip, whose norm sums in another order, reads 4e-9 after
+# the first step and 4e-5 after the third on the H100, so the limit
+# passes only the same arithmetic.
+PARAM_RTOL = 1e-5
+# A bf16 stage and MoE layer: their gradients through the pipeline's and
+# the all-to-alls' backward, against the plain ones (bit-equality recorded).
+BF16_GRAD_RTOL = 1e-2
+# The 1-stage pipeline's stage: a Llama-3-8B-width SwiGLU block (dim,
+# ffn_dim), over microbatches (count, tokens each).
+PIPELINE_STAGE = (4096, 14336, 4, 1024)
+
+
+def _sharded_model(seed: int):
+    """The sharded phases' weights: f32 masters, bf16 compute, remat, the
+    flash kernels; and the training batch of 4,096 tokens."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(attn_impl="flash", n_layers=SHARDED_LAYERS)
+    assert cfg.remat and cfg.param_dtype == torch.float32
+    params = llama.init_params(cfg, seed, device=DEV)
+    rng = np.random.RandomState(seed + 3)
+    tokens = torch.as_tensor(
+        rng.randint(0, cfg.vocab_size, (1, TRAIN_TOKENS + 1)), device=DEV)
+    return cfg, params, (tokens[:, :-1], tokens[:, 1:])
+
+
+def _flash_counts() -> dict:
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    return {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+            "flash_bwd_dkv": fa.dkv_launches}
+
+
+def _leaves(params) -> list:
+    from horovod_tpu_torch.optim.distributed_optimizer import tree_leaves
+
+    return tree_leaves(params)
+
+
+def phase_sequence_parallel(cfg, params0, batch) -> dict:
+    """The Llama's sequence-parallel engines at a world of one on NCCL:
+    ``ulysses_flash`` (two all-to-alls around the flash kernels) against
+    ``flash``, ``ring`` (einsum block updates) against the blockwise
+    engine with one block; then one remat training step of each of
+    ``ulysses_flash`` and ``flash`` from the same weights."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    world = dist.group.WORLD
+    tokens = batch[0]
+    impl = {name: dataclasses.replace(cfg, attn_impl=name)
+            for name in ("flash", "ulysses_flash", "ring", "blockwise")}
+    impl["blockwise"] = dataclasses.replace(impl["blockwise"],
+                                            attn_block_size=TRAIN_TOKENS)
+    with torch.no_grad():
+        logits = {"flash": llama.forward(params0, tokens, impl["flash"])}
+        for name in ("ulysses_flash", "ring"):
+            logits[name] = llama.forward(params0, tokens, impl[name],
+                                         sp_group=world)
+        logits["blockwise"] = llama.forward(params0, tokens,
+                                            impl["blockwise"])
+    ref = logits["blockwise"]
+    ring_err = float((logits["ring"] - ref).abs().max() / ref.abs().max())
+    out = {"n_layers": cfg.n_layers, "tokens": TRAIN_TOKENS,
+           "world_size": dist.get_world_size(),
+           "ulysses_flash_logits_bit_equal_flash":
+               torch.equal(logits["ulysses_flash"], logits["flash"]),
+           "ring_logits_bit_equal_blockwise": torch.equal(logits["ring"], ref),
+           "ring_vs_blockwise_rel_err": ring_err, "logit_rtol": LOGIT_RTOL}
+    del logits, ref
+    leaves = _leaves(params0)
+    for t in leaves:
+        t.requires_grad_()
+    # A warm-up backward (the first at this size pays one-time costs),
+    # then one timed step of each route.
+    llama.loss_fn(params0, batch, impl["flash"]).backward()
+    for t in leaves:
+        t.grad = None
+    steps, grads_flash = {}, None
+    for name in ("flash", "ulysses_flash"):
+        kw = {"sp_group": world} if name == "ulysses_flash" else {}
+        sync()
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        t0 = time.perf_counter()
+        loss = llama.loss_fn(params0, batch, impl[name], **kw)
+        loss.backward()
+        sync()
+        steps[name] = {"loss": float(loss.detach()), "step_s": time.perf_counter() - t0,
+                       "launches": _flash_counts()}
+        grads = [t.grad for t in leaves]
+        for t in leaves:
+            t.grad = None
+        if grads_flash is None:
+            grads_flash = grads
+        else:
+            out["grads_bit_equal"] = all(torch.equal(a, b) for a, b in
+                                         zip(grads, grads_flash))
+    del grads, grads_flash
+    for t in leaves:
+        t.requires_grad_(False)
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    out.update(steps=steps, expected_launches_per_step=want)
+    checks = {
+        "ulysses_flash_logits_bit_equal": out[
+            "ulysses_flash_logits_bit_equal_flash"],
+        "ring_within_logit_rtol": ring_err <= LOGIT_RTOL,
+        "loss_bit_equal": steps["flash"]["loss"]
+        == steps["ulysses_flash"]["loss"],
+        "grads_bit_equal": out["grads_bit_equal"],
+        "launches": all(s["launches"] == want for s in steps.values()),
+    }
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    emit("train sequence_parallel", **out)
+    if not out["ok"]:
+        raise PhaseError("train sequence_parallel failed its checks: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"launches": {k: sum(s["launches"][k] for s in steps.values())
+                         for k in want}}
+
+
+def _adamw(leaves):
+    import torch
+
+    return torch.optim.AdamW(leaves, lr=2e-5, betas=(0.9, 0.95),
+                             weight_decay=0.1, fused=True)
+
+
+def _run_route(step, params, batch, n_layers, after_step) -> dict:
+    """``SHARDED_STEPS`` steps of one route: losses, seconds, launches a
+    step, the allocator's peak; ``after_step(i, params)`` after each."""
+    import torch
+
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    sync()
+    losses, seconds, launches = [], [], []
+    for i in range(SHARDED_STEPS):
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        t0 = time.perf_counter()
+        out = step(params, batch)
+        losses.append(float(out.loss))
+        sync()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(_flash_counts())
+        after_step(i, params)
+    want = {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
+            "flash_bwd_dkv": n_layers}
+    return {"losses": losses, "step_s": seconds, "launches_per_step": launches,
+            "launches_ok": all(l == want for l in launches),
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_sharded_training(cfg, params0, batch) -> dict:
+    """``train zero`` and ``train fsdp``: three AdamW steps (clip 1.0) of
+    each sharded route from the same weights as the replicated
+    ``DistributedOptimizer`` route, each step's parameters held leaf by
+    leaf against the replicated route's (kept on the host)."""
+    import torch
+
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.optim.distributed_optimizer import (
+        DistributedOptimizer, make_train_step)
+    from horovod_tpu_torch.optim.fsdp import (fsdp_partition_specs,
+                                              make_fsdp_train_step,
+                                              shard_params)
+    from horovod_tpu_torch.optim.zero import make_zero_train_step
+
+    loss_fn = llama.make_loss_fn(cfg)
+    names = [n for n in ("embed", "final_norm", "lm_head")] + [
+        f"layers.{k}" for k in sorted(params0["layers"])]
+
+    def flat(params):
+        return dict(zip(sorted(names), _leaves(params)))
+
+    # The replicated route, its parameters after each step on the host.
+    reference = []
+    torch.cuda.reset_peak_memory_stats()
+    rep = {k: (v.clone() if not isinstance(v, dict) else
+               {n: t.clone() for n, t in v.items()})
+           for k, v in params0.items()}
+    leaves = _leaves(rep)
+    for t in leaves:
+        t.requires_grad_()
+    replicated_step = make_train_step(
+        loss_fn, DistributedOptimizer(_adamw(leaves)), max_grad_norm=1.0)
+    routes = {"replicated": _run_route(
+        lambda p, b: replicated_step(p, b), rep, batch, cfg.n_layers,
+        lambda i, p: reference.append({k: t.detach().to("cpu", copy=True)
+                                       for k, t in flat(p).items()}))}
+    del rep, leaves, replicated_step
+    torch.cuda.empty_cache()
+
+    out = {}
+    for route in ("zero", "fsdp"):
+        torch.cuda.reset_peak_memory_stats()
+        if route == "zero":
+            params = {k: (v.clone() if not isinstance(v, dict) else
+                          {n: t.clone() for n, t in v.items()})
+                      for k, v in params0.items()}
+            step, init = make_zero_train_step(loss_fn, _adamw,
+                                              clip_global_norm=1.0)
+        else:
+            # A world of one: each shard is the whole leaf.
+            params = shard_params(params0, fsdp_partition_specs(params0))
+            step, init = make_fsdp_train_step(loss_fn, _adamw,
+                                              clip_global_norm=1.0)
+        state = init(params)
+        errs = []
+
+        def after(i, params):
+            errs.append({k: _rel_err(t, reference[i][k])
+                         for k, t in flat(params).items()})
+        routes[route] = _run_route(lambda p, b: step(p, state, b), params,
+                                   batch, cfg.n_layers, after)
+        routes[route]["param_rel_err_max_by_step"] = [
+            max(e[0] for e in step_errs.values()) for step_errs in errs]
+        routes[route]["params_bit_equal_by_step"] = [
+            all(e[1] for e in step_errs.values()) for step_errs in errs]
+        routes[route]["opt_state_elems"] = sum(
+            v.numel() for st in (state.optimizer.state if route == "zero"
+                                 else state.state).values()
+            for v in st.values() if torch.is_tensor(v) and v.dim() > 0)
+        del params, state, step, init
+        torch.cuda.empty_cache()
+        r = routes[route]
+        checks = {
+            "launches": r["launches_ok"],
+            "losses_within_rtol": all(
+                abs(a - b) <= PARAM_RTOL * abs(b) for a, b in
+                zip(r["losses"], routes["replicated"]["losses"])),
+            "params_within_rtol": max(r["param_rel_err_max_by_step"])
+            <= PARAM_RTOL,
+            "finite": all(math.isfinite(x) for x in r["losses"]),
+        }
+        out[route] = {
+            "n_layers": cfg.n_layers, "params": llama.num_params(cfg),
+            "tokens_per_step": TRAIN_TOKENS, "route": r,
+            "replicated": routes["replicated"],
+            "losses_bit_equal": r["losses"] == routes["replicated"]["losses"],
+            "param_rtol": PARAM_RTOL, "checks": checks,
+            "ok": all(checks.values())}
+        emit(f"train {route}", **out[route])
+        if not out[route]["ok"]:
+            raise PhaseError(f"train {route} failed its checks: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    keys = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    return {"launches": {k: sum(l[k] for r in routes.values()
+                                for l in r["launches_per_step"])
+                         for k in keys}}
+
+
+def _rel_err(a, ref_host) -> tuple[float, bool]:
+    """‖a − ref‖ / ‖ref‖ on the card, and whether they are equal."""
+    import torch
+
+    ref = ref_host.to(a.device)
+    a = a.detach()
+    return (float((a.float() - ref.float()).norm() / ref.float().norm()),
+            bool(torch.equal(a, ref)))
+
+
+def phase_pipeline_moe(seed: int) -> dict:
+    """A 1-stage pipeline of a Llama-3-8B-width SwiGLU block (bf16) against
+    the same stage run microbatch by microbatch; ``expert_parallel_mlp``
+    at a world of one against ``moe.forward`` at ``MoEConfig``'s own
+    widths, 4,096 bf16 tokens, with gradients."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import moe
+    from horovod_tpu_torch.parallel import pipeline
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 11)
+    d, f, m, mb = PIPELINE_STAGE
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEV) * scale).to(
+            torch.bfloat16)
+
+    stage = {"w_gate": rand(d, f, scale=d ** -0.5),
+             "w_up": rand(d, f, scale=d ** -0.5),
+             "w_down": rand(f, d, scale=f ** -0.5)}
+
+    def stage_fn(p, h):
+        return h + (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
+
+    x, tgt = rand(m, mb, d), rand(m, mb, d)
+
+    def mse(y, t):
+        return ((y.float() - t.float()) ** 2).mean()
+
+    out = {"stage": {"dim": d, "ffn_dim": f, "microbatches": m,
+                     "microbatch_tokens": mb, "dtype": "bf16"}}
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        ys = pipeline.pipeline_forward(stage_fn, stage, x)
+        sync()
+        out["pipeline_forward_s"] = time.perf_counter() - t0
+        seq = torch.stack([stage_fn(stage, x[i]) for i in range(m)])
+    out["pipeline_forward_bit_equal"] = torch.equal(ys, seq)
+    for t in stage.values():
+        t.requires_grad_()
+    pipeline.pipeline_loss_fn(stage_fn, mse)(stage, (x, tgt)).backward()
+    g_pipe = {k: t.grad for k, t in stage.items()}
+    for t in stage.values():
+        t.grad = None
+    torch.stack([mse(stage_fn(stage, x[i]), tgt[i])
+                 for i in range(m)]).mean().backward()
+    g_seq = {k: t.grad for k, t in stage.items()}
+    out["pipeline_grads_bit_equal"] = all(torch.equal(g_pipe[k], g_seq[k])
+                                          for k in stage)
+    out["pipeline_grad_rel_err"] = {
+        k: float((g_pipe[k].float() - g_seq[k].float()).norm()
+                 / g_seq[k].float().norm()) for k in stage}
+    del stage, g_pipe, g_seq, ys, seq
+
+    cfg = moe.MoEConfig()
+    params = {k: v.requires_grad_() for k, v in
+              moe.init_params(cfg, seed, device=DEV).items()}
+    tokens = (torch.randn((TRAIN_TOKENS, cfg.dim), generator=gen, device=DEV)
+              .to(torch.bfloat16).requires_grad_())
+    res = {}
+    for name, fn in (("forward", moe.forward),
+                     ("expert_parallel_mlp", moe.expert_parallel_mlp)):
+        with torch.no_grad():
+            fn(params, tokens, cfg)             # warm-up, not timed
+        sync()
+        t0 = time.perf_counter()
+        y, aux = fn(params, tokens, cfg)
+        ((y.float() ** 2).mean() + aux).backward()
+        sync()
+        res[name] = {"s": time.perf_counter() - t0, "y": y.detach(),
+                     "aux": float(aux.detach()),
+                     "grads": {k: t.grad for k, t in params.items()},
+                     "x_grad": tokens.grad}
+        for t in list(params.values()) + [tokens]:
+            t.grad = None
+    a, b = res["expert_parallel_mlp"], res["forward"]
+    grads = {**{k: (a["grads"][k], b["grads"][k]) for k in params},
+             "x": (a["x_grad"], b["x_grad"])}
+    out["moe"] = {
+        "config": dataclasses.asdict(cfg) | {"dtype": "bf16",
+                                              "param_dtype": "f32"},
+        "tokens": TRAIN_TOKENS, "capacity": moe._capacity(TRAIN_TOKENS, cfg),
+        "forward_backward_s": {"forward": b["s"],
+                               "expert_parallel_mlp": a["s"]},
+        "y_bit_equal": torch.equal(a["y"], b["y"]),
+        "aux_bit_equal": a["aux"] == b["aux"],
+        "grads_bit_equal": all(torch.equal(g, h) for g, h in grads.values()),
+        "grad_rel_err": {k: float((g.float() - h.float()).norm()
+                                  / h.float().norm())
+                         for k, (g, h) in grads.items()}}
+    y_err = float((a["y"].float() - b["y"].float()).abs().max()
+                  / b["y"].float().abs().max())
+    out["moe"]["y_rel_err"] = y_err
+    checks = {
+        "pipeline_forward_bit_equal": out["pipeline_forward_bit_equal"],
+        "pipeline_grads": max(out["pipeline_grad_rel_err"].values())
+        <= BF16_GRAD_RTOL,
+        "moe_y": y_err <= BF16_GRAD_RTOL,
+        "moe_aux": abs(a["aux"] - b["aux"]) <= 1e-6 * abs(b["aux"]),
+        "moe_grads": max(out["moe"]["grad_rel_err"].values())
+        <= BF16_GRAD_RTOL,
+    }
+    out["bf16_grad_rtol"] = BF16_GRAD_RTOL
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    emit("train pipeline_moe", **out)
+    if not out["ok"]:
+        raise PhaseError("train pipeline_moe failed its checks: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return out
 
 
 # -- vision paths ------------------------------------------------------------
@@ -4314,6 +4728,20 @@ def main(argv=None) -> int:
         emit("depth cut", path="train", n_layers=args.train_layers, of=32)
         train = phase_train(args.train_layers, args.seed)
         torch.cuda.empty_cache()
+        phase = "train sequence_parallel"
+        emit("depth cut", path="train sharded", n_layers=SHARDED_LAYERS,
+             of=32)
+        sharded_cfg, sharded_params, sharded_batch = _sharded_model(args.seed)
+        seqpar = phase_sequence_parallel(sharded_cfg, sharded_params,
+                                         sharded_batch)
+        phase = "train zero"       # then "train fsdp", in the same call
+        sharded = phase_sharded_training(sharded_cfg, sharded_params,
+                                         sharded_batch)
+        del sharded_params
+        torch.cuda.empty_cache()
+        phase = "train pipeline_moe"
+        phase_pipeline_moe(args.seed)
+        torch.cuda.empty_cache()
         phase = "train resnet101"
         phase_resnet101(args.seed)
         phase = "train vit_b16"
@@ -4344,7 +4772,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": _kernel_rows(build, kern, kern_bwd, gen, bat,
                                               spec, train, kern64, vit,
                                               eager, router, elastic,
-                                              thr)}),
+                                              thr, (seqpar, sharded))}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
@@ -4364,10 +4792,12 @@ def _ptx(build, kernel: str) -> dict:
 
 
 def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
-                 vit, eager, router, elastic, thr) -> list[dict]:
+                 vit, eager, router, elastic, thr, sharded) -> list[dict]:
     """One row per kernel and head dim: its launches on the main paths
     (D = 128: serving's generate, batcher and the router's fleet,
-    ``measure_throughput``'s static baseline, the Llama train steps; D = 64: the ViT-B/16 train steps, synchronous, under the
+    ``measure_throughput``'s static baseline, the Llama train steps and the
+    sharded phases' steps (sequence-parallel, replicated, ZeRO, FSDP); D =
+    64: the ViT-B/16 train steps, synchronous, under the
     hook-driven optimizer of ``train eager`` and inside ``elastic.run`` in
     ``train elastic``), its largest error over the bf16 cases
     and its times at its main shape (the generate prefill for the forward,
@@ -4392,7 +4822,8 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
                      + spec["launches"][128]
                      + router["launches"]["flash_fwd_d128"]
                      + thr["launches"]["flash_fwd_d128"]
-                     + train["launches"]["flash_fwd"]),
+                     + train["launches"]["flash_fwd"]
+                     + sum(p["launches"]["flash_fwd"] for p in sharded)),
         "max_abs_err": max(c["o_max_abs_err"] for c in kern["cases"]
                            if c["dtype"] == "bf16"),
         "ms": fwd["ms"], "wall_ms": fwd["wall_ms"],
@@ -4417,7 +4848,8 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
             "name": name, "route": "cuda", "design": "cuda wgmma+tma",
             "source": "horovod_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"{src}:{line}",
-            "launches": train["launches"][name],
+            "launches": (train["launches"][name]
+                         + sum(p["launches"][name] for p in sharded)),
             "max_abs_err": max(c[f"{g}_max_abs_err"] for c in kern_bwd["cases"]
                                for g in grads if c["dtype"] == "bf16"),
             **{k: t[k] for k in ("ms", "wall_ms", "host_us_per_call",

@@ -35,6 +35,13 @@ one, as ``horovod_tpu.DistributedOptimizer`` is the compiled one.
 restores and replays training after a ``HorovodInternalError``.  The
 serving engine has a multi-replica front door, ``router.RouterServer``,
 and ``supervisor.ReplicaSupervisor`` respawns its dead replicas.
+
+Training also shards: ``make_zero_train_step`` (optimizer state at 1/n),
+``make_fsdp_train_step`` (parameters too), sequence parallelism (the
+Llama's ``ring``, ``ulysses`` and ``ulysses_flash`` engines over
+``forward``'s ``sp_group``), ``parallel.pipeline`` and expert-parallel
+``models.moe``, all over the differentiable collectives of
+``parallel/_collectives.py``.
 """
 
 from horovod_tpu_torch._device import resolve_device
@@ -72,6 +79,10 @@ from horovod_tpu_torch.checkpoint import (latest_checkpoint, list_checkpoints,
                                           load_model, restore_checkpoint,
                                           save_checkpoint,
                                           wait_for_checkpoints)
+from horovod_tpu_torch.optim.zero import ZeroStepResult, make_zero_train_step
+from horovod_tpu_torch.optim.fsdp import (FsdpStepResult,
+                                          fsdp_partition_specs,
+                                          make_fsdp_train_step, shard_params)
 from horovod_tpu_torch.training import fit, make_eval_step
 from horovod_tpu_torch import elastic
 
@@ -95,6 +106,8 @@ __all__ = [
     "MetricAverageCallback", "ModelCheckpointCallback", "average_metrics",
     "multiplier_schedule", "warmup_schedule", "latest_checkpoint",
     "list_checkpoints", "load_model", "restore_checkpoint",
-    "save_checkpoint", "wait_for_checkpoints", "fit", "make_eval_step",
+    "save_checkpoint", "wait_for_checkpoints", "ZeroStepResult",
+    "make_zero_train_step", "FsdpStepResult", "fsdp_partition_specs",
+    "make_fsdp_train_step", "shard_params", "fit", "make_eval_step",
     "elastic",
 ]

@@ -1,11 +1,13 @@
 """Llama-3 data-parallel training on the port: one process per GPU.
 
-Twin of ``examples/llama_finetune.py`` with its default flags:
-``init`` → ``broadcast_parameters`` → ``DistributedOptimizer(AdamW(lr,
-betas=(0.9, 0.95), weight_decay=0.1))`` with global-norm clipping at 1.0
-after the gradient allreduce → ``make_train_step(loss_fn)`` → steps on
-random tokens.  Remat follows the config (on for Llama-3-8B, off for the
-tiny model), as in the JAX package.
+Twin of ``examples/llama_finetune.py``: ``init`` → ``broadcast_parameters``
+→ ``DistributedOptimizer(AdamW(lr, betas=(0.9, 0.95), weight_decay=0.1))``
+with global-norm clipping at 1.0 after the gradient allreduce →
+``make_train_step(loss_fn)`` → steps on random tokens.  ``--zero`` takes
+``make_zero_train_step`` (AdamW over the rank's 1/n shard, the clip from
+the shards' norms), ``--fsdp`` ``make_fsdp_train_step`` over
+``shard_params`` (the clip from the shards' norms too).  Remat follows the config (on for Llama-3-8B,
+off for the tiny model), as in the JAX package.
 
     python -m horovod_tpu_torch.examples.llama_finetune --tiny --steps 2 --device cpu
 
@@ -14,8 +16,14 @@ sets rank and world, else a world of one):
 
     python -m horovod_tpu_torch.examples.llama_finetune --attn flash --n-layers 8 --steps 4
 
-``--zero``, ``--fsdp`` and the sequence-parallel engines (``--attn ring``,
-``ulysses``, ``ulysses_flash``) come with later slices of the port.
+Two gloo ranks on the CPU: ``HOROVOD_TPU_PROCESS_ID``/``_NUM_PROCESSES``/
+``_COORDINATOR`` per process, then ``--zero`` or ``--fsdp``.
+
+The sequence-parallel engines (``--attn ring``, ``ulysses``,
+``ulysses_flash``) are refused: they need each rank to hold a slice of the
+sequence and ``forward``'s ``sp_group``, and this example builds no such
+group (the reference's example passes no ``sp_axis`` and fails at its
+first step).
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ from horovod_tpu_torch.optim.distributed_optimizer import (
     make_train_step,
     tree_leaves,
 )
+from horovod_tpu_torch.optim.fsdp import (fsdp_partition_specs,
+                                          make_fsdp_train_step, shard_params)
+from horovod_tpu_torch.optim.zero import make_zero_train_step
 
 _SEQUENCE_PARALLEL = ("ring", "ulysses", "ulysses_flash")
 
@@ -51,10 +62,10 @@ def main(argv=None) -> list[float]:
                    choices=["dense", "blockwise", "ring", "ulysses",
                             "ulysses_flash", "flash"])
     p.add_argument("--zero", action="store_true",
-                   help="ZeRO sharded optimizer (a later slice of the port)")
+                   help="ZeRO sharded optimizer (state at 1/n per rank)")
     p.add_argument("--fsdp", action="store_true",
-                   help="fully-sharded params and optimizer state (a later "
-                        "slice of the port)")
+                   help="fully-sharded params AND optimizer state (1/n per "
+                        "rank between steps)")
     p.add_argument("--fused-loss", action="store_true",
                    help="chunked fused linear+cross-entropy (no [B*L, V] "
                         "logits)")
@@ -66,14 +77,11 @@ def main(argv=None) -> list[float]:
     args = p.parse_args(argv)
     if args.zero and args.fsdp:
         p.error("--zero and --fsdp are alternative sharding strategies")
-    if args.zero or args.fsdp:
-        raise NotImplementedError(
-            "--zero/--fsdp (sharded optimizer state) come with a later slice "
-            "of the port")
     if args.attn in _SEQUENCE_PARALLEL:
         raise NotImplementedError(
-            f"--attn {args.attn} needs sequence parallelism, which comes with "
-            f"a later slice of the port")
+            f"--attn {args.attn} is sequence-parallel: each rank would hold "
+            f"a slice of the sequence and pass forward an sp_group, and this "
+            f"example builds no sequence-parallel group")
 
     basics.init(args.device)
     dev = basics.device()
@@ -87,13 +95,35 @@ def main(argv=None) -> list[float]:
 
     params = llama.init_params(cfg, 0, device=dev)
     params = broadcast_parameters(params, root_rank=0)
-    leaves = tree_leaves(params)
-    for t in leaves:
-        t.requires_grad_()
-    opt = DistributedOptimizer(torch.optim.AdamW(
-        leaves, lr=args.lr, betas=(0.9, 0.95), weight_decay=0.1,
-        fused=dev.type == "cuda"))
-    step = make_train_step(llama.make_loss_fn(cfg), opt, max_grad_norm=1.0)
+    loss_fn = llama.make_loss_fn(cfg)
+
+    def adamw(leaves):
+        return torch.optim.AdamW(leaves, lr=args.lr, betas=(0.9, 0.95),
+                                 weight_decay=0.1, fused=dev.type == "cuda")
+
+    if args.fsdp:
+        # Params and AdamW moments at 1/n a rank between steps.
+        step, init_opt = make_fsdp_train_step(loss_fn, adamw,
+                                              clip_global_norm=1.0)
+        params = shard_params(params, fsdp_partition_specs(params))
+        opt_state = init_opt(params)
+    elif args.zero:
+        # AdamW's moments at 1/n a rank; the clip from the shards' norms.
+        step, init_opt = make_zero_train_step(loss_fn, adamw,
+                                              clip_global_norm=1.0)
+        for t in tree_leaves(params):
+            t.requires_grad_()
+        opt_state = init_opt(params)
+    else:
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_()
+        replicated = make_train_step(
+            loss_fn, DistributedOptimizer(adamw(leaves)), max_grad_norm=1.0)
+        opt_state = None
+
+        def step(params, opt_state, batch):
+            return replicated(params, batch)
 
     if rank == 0:
         print(f"params: {llama.num_params(cfg) / 1e6:.1f}M  gpus: {n}  "
@@ -108,7 +138,7 @@ def main(argv=None) -> list[float]:
         # Rank-major like the JAX example's batch; each rank takes its rows.
         tokens = rng.integers(0, cfg.vocab_size, size=(b * n, seq + 1))
         mine = torch.as_tensor(tokens[rank * b:(rank + 1) * b], device=dev)
-        out = step(params, (mine[:, :-1], mine[:, 1:]))
+        out = step(params, opt_state, (mine[:, :-1], mine[:, 1:]))
         losses.append(float(out.loss))
         if i % 10 == 0 and rank == 0:
             print(f"step {i}: loss {losses[-1]:.4f}")

@@ -1,6 +1,7 @@
 """Parameters of the JAX reference → parameters of the port.
 
-``params_from_jax`` for the Llama parameter tree; ``vision_state_dict_from_flax``
+``params_from_jax`` for the Llama parameter tree; ``moe_params_from_jax``
+for the MoE layer's; ``vision_state_dict_from_flax``
 for the flax variables of the vision models; ``compression_state_from_jax``
 for the state of a stateful gradient compressor.
 """
@@ -31,6 +32,20 @@ def params_from_jax(tree: dict, *, device: str | torch.device | None = None
     dev = resolve_device(device)
     return {k: params_from_jax(v, device=dev) if isinstance(v, dict)
             else _to_tensor(v, dev) for k, v in tree.items()}
+
+
+_MOE_KEYS = {"router", "w_in", "w_out"}
+
+
+def moe_params_from_jax(tree: dict, *, device: str | torch.device | None = None
+                        ) -> dict:
+    """The reference's ``moe.init_params`` dict (``router [D, E]``,
+    ``w_in [E, D, F]``, ``w_out [E, F, D]``, or a rank's expert slice of
+    it) as the port's :mod:`.moe` parameters, same shapes and dtypes."""
+    if set(tree) != _MOE_KEYS:
+        raise ValueError(f"not MoE parameters: keys {sorted(tree)}, want "
+                         f"{sorted(_MOE_KEYS)}")
+    return params_from_jax(tree, device=device)
 
 
 def _flat_items(tree: dict, prefix: tuple = ()):

@@ -20,8 +20,9 @@ to ``cfg.dtype`` at each use, exactly as the reference; a server may hold
 them in ``cfg.dtype`` from load (``param_dtype=cfg.dtype``), which gives
 the same values, since the cast at use is then a no-op.
 
-The sequence-parallel engines (ring, Ulysses) and the tensor-parallel
-partition specs come with later slices.
+The sequence-parallel engines (ring, Ulysses, Ulysses over the flash
+kernel) run over ``forward``'s ``sp_group``; the tensor-parallel partition
+specs come with a later slice.
 """
 
 from __future__ import annotations
@@ -56,7 +57,9 @@ class LlamaConfig:
     max_seq_len: int = 8192
     dtype: Any = torch.bfloat16          # activation/compute dtype
     param_dtype: Any = torch.float32     # master weights
-    attn_impl: str = "dense"  # dense | blockwise | flash (ring/ulysses later)
+    # dense | blockwise | flash | ring | ulysses | ulysses_flash (the last
+    # three sequence-parallel: forward's sp_group)
+    attn_impl: str = "dense"
     attn_block_size: int = 512
     remat: bool = True                 # checkpoint each layer in training
     # Named remat policy, the reference's jax.checkpoint_policies names:
@@ -199,7 +202,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
 
 
-def _attention(cfg: LlamaConfig, q, k, v, *, positions_offset):
+def _attention(cfg: LlamaConfig, q, k, v, *, positions_offset,
+               sp_group=None):
     impl = cfg.attn_impl
     if impl == "dense":
         return attn_mod.dense_attention(
@@ -212,9 +216,18 @@ def _attention(cfg: LlamaConfig, q, k, v, *, positions_offset):
     if impl == "flash":
         return flash_attention(q, k, v, causal=True)
     if impl in ("ring", "ulysses", "ulysses_flash"):
-        raise NotImplementedError(
-            f"attn_impl={impl!r} needs sequence parallelism, which comes "
-            f"with a later slice of the port")
+        if sp_group is None:
+            # The reference fails here with "unbound axis name: None".
+            raise ValueError(
+                f"attn_impl={impl!r} is sequence-parallel: forward needs "
+                f"sp_group, the process group the sequence is sharded over "
+                f"(got None)")
+        if impl == "ring":
+            return attn_mod.ring_attention(q, k, v, group=sp_group,
+                                           causal=True)
+        return attn_mod.ulysses_attention(
+            q, k, v, group=sp_group, causal=True,
+            impl=flash_attention if impl == "ulysses_flash" else None)
     raise ValueError(f"unknown attn_impl {impl!r}")
 
 
@@ -292,19 +305,25 @@ def _resolve_remat_policy(cfg: LlamaConfig) -> Callable | None:
                              policy_fn)
 
 
-def _block(cfg: LlamaConfig, x, lp, cos, sin, positions_offset):
+def _block(cfg: LlamaConfig, x, lp, cos, sin, positions_offset, sp_group):
     """One transformer layer: attention and MLP, each with its residual."""
     b, l = x.shape[:2]
     q, k, v = _qkv(cfg, x, lp, cos, sin)
-    o = _attention(cfg, q, k, v, positions_offset=positions_offset)
+    o = _attention(cfg, q, k, v, positions_offset=positions_offset,
+                   sp_group=sp_group)
     x = x + o.reshape(b, l, cfg.dim) @ lp["wo"].to(cfg.dtype)
     return _mlp(cfg, x, lp)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
-            positions_offset: int = 0,
+            positions_offset: int = 0, sp_group=None,
             return_hidden: bool = False) -> torch.Tensor:
     """Token ids [B, L] → logits [B, L, V] (f32).
+
+    ``positions_offset``: the global position of tokens[:, 0] (nonzero on
+    a sequence slice).  ``sp_group``: the process group the sequence is
+    sharded over, for ``attn_impl`` ring, ulysses and ulysses_flash (the
+    reference's ``sp_axis``); each rank passes its slice of the tokens.
 
     With ``cfg.remat`` and autograd recording, each layer runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are
@@ -331,10 +350,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
         lp = {name: layers[name][i] for name in _LAYER_KEYS}
         if remat:
             x = ckpt.checkpoint(_block, cfg, x, lp, cos, sin,
-                                positions_offset, use_reentrant=False,
+                                positions_offset, sp_group,
+                                use_reentrant=False,
                                 **extra)
         else:
-            x = _block(cfg, x, lp, cos, sin, positions_offset)
+            x = _block(cfg, x, lp, cos, sin, positions_offset, sp_group)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x

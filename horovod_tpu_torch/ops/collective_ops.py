@@ -21,6 +21,7 @@ import torch.distributed as dist
 
 from horovod_tpu_torch import basics
 from horovod_tpu_torch.ops import fusion
+from horovod_tpu_torch.parallel import _collectives
 from horovod_tpu_torch.ops.compression import (Compression, Compressor,
                                                _all_gather)
 
@@ -379,17 +380,9 @@ def alltoall(tensor: torch.Tensor, *, split_axis: int = 0,
     per rank, chunk j goes to rank j, and the chunks received are
     concatenated along ``concat_axis`` in rank order (what
     ``lax.all_to_all(..., tiled=True)`` computes)."""
-    n = basics.size()
-    split_axis %= tensor.dim()
-    if tensor.shape[split_axis] % n:
-        raise ValueError(
-            f"alltoall: dim {split_axis} of size {tensor.shape[split_axis]} "
-            f"does not split over {n} ranks")
-    x = tensor.movedim(split_axis, 0).contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x)
-    pieces = [p.movedim(0, split_axis) for p in out.chunk(n)]
-    return torch.cat(pieces, dim=concat_axis)
+    basics._require_init()
+    return _collectives._all_to_all(tensor, split_axis % tensor.dim(),
+                                    concat_axis % tensor.dim(), None)
 
 
 def reducescatter(tensor: torch.Tensor, *, op: _ReduceOp = Sum
@@ -399,13 +392,10 @@ def reducescatter(tensor: torch.Tensor, *, op: _ReduceOp = Sum
     if op not in (Sum, Average):
         raise ValueError("reducescatter supports Sum / Average")
     n = basics.size()
-    if tensor.dim() == 0 or tensor.shape[0] % n:
-        raise ValueError(f"reducescatter: dim 0 of {tuple(tensor.shape)} "
-                         f"does not split over {n} ranks")
-    x = tensor.contiguous()
-    out = torch.empty((x.shape[0] // n,) + x.shape[1:], dtype=x.dtype,
-                      device=x.device)
-    dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM)
+    if tensor.dim() == 0:
+        raise ValueError(f"reducescatter: a 0-d tensor does not split over "
+                         f"{n} ranks")
+    out = _collectives._reduce_scatter(tensor, 0, None)
     return out / n if op is Average else out
 
 

@@ -320,6 +320,6 @@ def test_init_params_layout_and_unported_engines():
     assert sum(t.numel() for t in jax.tree_util.tree_leaves(tp)) == \
         tl.num_params(tcfg)
     assert tl.num_params(tl.llama3_8b()) == jl.num_params(jl.llama3_8b())
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="needs sp_group"):
         tl.forward(tp, _t(_tokens(1, 4)),
                    dataclasses.replace(tcfg, attn_impl="ring"))

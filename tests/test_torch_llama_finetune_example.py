@@ -1,8 +1,10 @@
 """The example twin ``python -m horovod_tpu_torch.examples.llama_finetune``.
 
 It drives the port's data-parallel path (``init``, ``broadcast_parameters``,
-``DistributedOptimizer``, ``make_train_step``) as a user would; the flags
-of paths that come with later slices raise.
+``DistributedOptimizer``, ``make_train_step``) as a user would, and the
+ZeRO and FSDP steps on a gloo world of two; the sequence-parallel engines
+are refused before ``init``, as the example builds no sequence-parallel
+group.
 """
 
 from __future__ import annotations
@@ -12,7 +14,10 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
+
+from torch_gloo_world import start_world
 
 ROOT = Path(__file__).resolve().parent.parent
 LAUNCH_VARS = ("HOROVOD_TPU_PROCESS_ID", "HOROVOD_TPU_NUM_PROCESSES",
@@ -32,14 +37,41 @@ def test_example_twin_runs_on_cpu():
     assert "step 0: loss" in out.stdout
 
 
-@pytest.mark.parametrize("flags,match", [(["--zero"], "later slice"),
-                                         (["--fsdp"], "later slice"),
-                                         (["--attn", "ring"], "later slice")])
-def test_example_twin_later_flags_raise(flags, match):
+@pytest.mark.parametrize("attn", ["ring", "ulysses", "ulysses_flash"])
+def test_example_twin_later_flags_raise(attn, monkeypatch):
+    """The sequence-parallel engines refuse, naming the missing group,
+    before ``init`` (the reference's example fails at its first step)."""
+    from horovod_tpu_torch import basics
     from horovod_tpu_torch.examples import llama_finetune
 
-    with pytest.raises(NotImplementedError, match=match):
-        llama_finetune.main(["--tiny", "--device", "cpu", *flags])
+    monkeypatch.setattr(basics, "init", lambda *a: pytest.fail("init ran"))
+    with pytest.raises(NotImplementedError,
+                       match="builds no sequence-parallel group"):
+        llama_finetune.main(["--tiny", "--device", "cpu", "--attn", attn])
+
+
+def _sharded_example(rank, world, flag):
+    from horovod_tpu_torch.examples import llama_finetune
+
+    return llama_finetune.main(["--tiny", "--device", "cpu", flag,
+                                "--steps", "3", "--lr", "1e-2"])
+
+
+@pytest.fixture(scope="module")
+def sharded_runs():
+    joins = {flag: start_world(_sharded_example, 2, flag)
+             for flag in ("--zero", "--fsdp")}
+    return {flag: join(timeout=300) for flag, join in joins.items()}
+
+
+@pytest.mark.parametrize("flag", ["--zero", "--fsdp"])
+def test_example_twin_zero_and_fsdp_train_on_two_ranks(sharded_runs, flag):
+    """``--zero`` and ``--fsdp`` on a gloo world of two: every rank sees
+    the same finite losses, falling."""
+    losses = sharded_runs[flag]
+    assert losses[0] == losses[1]
+    assert len(losses[0]) == 3 and all(np.isfinite(losses[0]))
+    assert losses[0][-1] < losses[0][0]
 
 
 def test_example_twin_fused_loss_and_step_cap(monkeypatch):
