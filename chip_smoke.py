@@ -8,7 +8,8 @@ Phases, one JSON line each; any failure exits non-zero before the result:
 
 1. ``device``: requires CUDA; prints the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
-   them.
+   them, and on a line of its own whether ``import keras`` works (in a
+   child process, ``KERAS_BACKEND=torch``) and its version.
 2. ``build``: compiles every kernel under ``horovod_tpu_torch/csrc`` with
    ``nvcc`` for ``sm_90a`` (one process per source, all at once) into
    ``build/horovod_tpu_torch/``.
@@ -231,6 +232,28 @@ Phases, one JSON line each; any failure exits non-zero before the result:
     objects equals the trained state bit for bit, and ``load_model``
     returns a ``DistributedOptimizer`` around the optimizer it was given,
     which holds the trained momentum bit for bit.
+15. ``serve tp`` (after ``serve chaos``, with the serving weights freed):
+    tensor-parallel serving of Llama-3-8B at full width and depth, bf16, in
+    a world of two processes on the one card over gloo (NCCL refuses two
+    ranks on one GPU; the tensors stay on the card, gloo stages each
+    collective through the host), each rank building the weights from the
+    seed and keeping its Megatron shard: first gloo's ``all_reduce`` and
+    ``all_gather_into_tensor`` of card tensors against known results,
+    then ``measure_tp_throughput(tp_sizes=(1, 2), keep_tokens=True)`` on 8
+    requests of 128 tokens, budgets 16 (4 slots × 512, 128-token windows
+    and blocks), a tp = 2 engine behind a ``LocalReplica`` (its probe's
+    ``tp_size`` 2, its tokens equal to the sweep's), one argument signature
+    a program, ``kv.shard_*`` × 2 = ``kv.*`` for every gauge; the tp = 2
+    tokens against tp = 1's (equal, or a first split at a near-tie and
+    greedy-consistent after it) and every tp = 2 token greedy-consistent
+    in one target pass (the flash prefill: 32 launches a request); tokens/s
+    of both (two processes time-sharing one card: not a scaling figure),
+    the shard bytes, the leader's peak memory and the phase's seconds.
+16. ``train keras`` (last): the Keras 3 frontend on its torch backend, when
+    ``import keras`` works here (the device phase reports it on a line of
+    its own): ``examples/keras_mnist_advanced.py``'s twin for 2 epochs on
+    the card with the four callbacks, the weights card tensors that moved,
+    a ``load_model`` round trip; else the phase prints its skip.
 
 The training phases share one process group, shut down after the last.
 Then a ``{"kernels": [...]}`` line (each kernel at head dims 128 and 64)
@@ -423,6 +446,8 @@ def phase_device() -> dict:
             "count": torch.cuda.device_count(), "torch": torch.__version__,
             "cuda": torch.version.cuda}
     emit("device", ok=True, **info)
+    info["keras"] = _keras_probe()
+    emit("keras", **info["keras"])
     return info
 
 
@@ -4423,6 +4448,292 @@ def phase_simfleet(seed: int) -> dict:
 
 # ------------------------------------------------------- elastic training
 
+TP_WORLD = 2
+TP_ENGINE = {"n_slots": 4, "max_len": 512, "chunk": 128, "block_size": 128}
+TP_PROMPT = 128
+TP_BUDGET = 16
+TP_REQUESTS = 8
+TP_TIMEOUT_S = 600.0
+
+
+def _tp_requests(cfg, seed: int):
+    """``TP_REQUESTS`` random prompts of ``TP_PROMPT`` tokens (one window
+    and one block each), budget ``TP_BUDGET``."""
+    import numpy as np
+
+    from horovod_tpu_torch.serving import Request
+
+    rng = np.random.RandomState(seed + 17)
+    return [Request(prompt=rng.randint(0, cfg.vocab_size, TP_PROMPT).tolist(),
+                    max_new_tokens=TP_BUDGET) for _ in range(TP_REQUESTS)]
+
+
+def _gloo_cuda_probe(group) -> dict:
+    """The two collectives of the sharded forward on card tensors through
+    gloo, each against its known result: ``all_reduce`` of bf16 (the psums
+    after ``wo`` and ``w_down``), ``all_gather_into_tensor`` of bf16 (the
+    embedding's D-slice) and of f32 (the logits).  A refusal raises."""
+    import torch
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    x = torch.full((4096,), r + 1.0, dtype=torch.bfloat16, device=DEV)
+    dist.all_reduce(x, group=group)
+    out = {"all_reduce_bf16": bool((x == n * (n + 1) / 2).all())}
+    for name, dt in (("all_gather_bf16", torch.bfloat16),
+                     ("all_gather_f32", torch.float32)):
+        y = torch.full((4096,), float(r), dtype=dt, device=DEV)
+        got = torch.empty(n * 4096, dtype=dt, device=DEV)
+        dist.all_gather_into_tensor(got, y, group=group)
+        want = torch.arange(n, device=DEV).repeat_interleave(4096).to(dt)
+        out[name] = bool(torch.equal(got, want))
+    return out
+
+
+def _tp_serve(rank: int, seed: int) -> dict | None:
+    """One rank of ``serve tp``: rank 0 leads, rank 1 follows."""
+    import threading
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from horovod_tpu_torch import metrics as metrics_mod
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import flash_attention as fa
+    from horovod_tpu_torch.parallel.mesh import tensor_parallel_mesh
+    from horovod_tpu_torch.router import LocalReplica
+    from horovod_tpu_torch.serving_scheduler import (ServeEngine,
+                                                     measure_tp_throughput)
+
+    t0 = time.perf_counter()
+    mesh = tensor_parallel_mesh(TP_WORLD)
+    gloo = _gloo_cuda_probe(mesh.group("tp"))
+    if not all(gloo.values()):
+        raise PhaseError(f"gloo gave wrong results on card tensors: {gloo}")
+    cfg, full = _model(32, seed)
+    shard = llama.shard_params(full, llama.param_partition_specs(cfg), rank,
+                               TP_WORLD)
+    if rank != 0:
+        del full                # a follower keeps its shard only
+        full = None
+        torch.cuda.empty_cache()
+    shard_bytes = sum(x.numel() * x.element_size()
+                      for x in pytree.tree_leaves(shard))
+    reqs = _tp_requests(cfg, seed)
+    t_setup = time.perf_counter() - t0
+    # the leader's tp = 1 engine runs on the full weights, its tp = 2
+    # engine slices them; the follower brings its shard
+    _flash_zero()
+    meas = measure_tp_throughput(full if rank == 0 else shard, cfg, reqs,
+                                 tp_sizes=(1, TP_WORLD), keep_tokens=True,
+                                 **TP_ENGINE)
+    engine_launches = fa.launches
+    reg = metrics_mod.MetricsRegistry(event_log=None)
+    eng = ServeEngine(shard, cfg, tp_size=TP_WORLD, metrics=reg,
+                      monitor=False, sampler=False, **TP_ENGINE)
+    if not eng.is_leader:
+        eng.follow()
+        return None
+    rep = LocalReplica(eng, name="tp2")
+    try:
+        done, box = threading.Event(), {}
+        rep.submit(reqs[0], lambda res: (box.update(res=res), done.set()))
+        if not done.wait(timeout=300):
+            raise PhaseError("the tensor-parallel replica never answered")
+        probe = rep.probe()
+    finally:
+        rep.stop()
+    replica_tokens = [int(t) for t in box["res"]]
+    snap = eng.metrics_snapshot()
+    sizes = eng.compile_cache_sizes()
+    eng.close()
+    g = snap["gauges"]
+    identity = {k: g[f"kv.shard_{k}_bytes"] * TP_WORLD == g[f"kv.{k}_bytes"]
+                for k in ("block", "total", "free", "referenced", "cached")}
+    # the oracle: tp = 2 against tp = 1 request for request, and every
+    # tp = 2 token greedy-consistent in one target pass (the flash prefill)
+    a = meas.pop("serve_tp1_tokens")
+    b = meas.pop(f"serve_tp{TP_WORLD}_tokens")
+    _flash_zero()
+    greedy = _greedy_consistency(full, cfg, [r.prompt for r in reqs], b)
+    oracle_launches = fa.fwd_launches_by_dim[128]
+    split = _same_or_consistent(full, cfg, reqs, a, b)
+    return {
+        "gloo_cuda": gloo, "setup_s": t_setup, "measure": meas,
+        "tokens_split": split, "greedy": greedy,
+        "replica_tokens_equal": replica_tokens == b[0],
+        "probe_tp_size": probe["tp_size"],
+        "signatures": sizes, "shard_gauge_identity": identity,
+        "gauges": {k: g[k] for k in ("tp.size", "kv.shard_block_bytes",
+                                     "kv.block_bytes", "kv.shard_total_bytes",
+                                     "kv.total_bytes")},
+        "shard_param_bytes": shard_bytes,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "engine_launches": engine_launches,
+        "oracle_launches": oracle_launches,
+    }
+
+
+def _tp_rank(rank: int, port: int, seed: int, out: str) -> None:
+    """A spawned rank: a gloo world of ``TP_WORLD`` processes on the one
+    card (NCCL refuses two ranks on one GPU), card tensors on both."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=TP_WORLD)
+    try:
+        res = _tp_serve(rank, seed)
+    finally:
+        dist.destroy_process_group()
+    if res is not None:
+        with open(out, "w") as f:
+            json.dump(res, f)
+
+
+def phase_tp(seed: int) -> dict:
+    """``serve tp``: Llama-3-8B at full width and depth through a
+    tensor-parallel ``ServeEngine`` of two ranks, two processes on the one
+    card over gloo; ``measure_tp_throughput`` at tp 1 and 2, a tp = 2
+    engine behind a ``LocalReplica``, the tokens against tp = 1's."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(tempfile.mkdtemp(prefix="serve_tp_"), "leader.json")
+    ctx = mp.start_processes(_tp_rank, args=(port, seed, out),
+                             nprocs=TP_WORLD, join=False,
+                             start_method="spawn")
+    try:
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                raise PhaseError(f"serve tp still running after "
+                                 f"{TP_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    with open(out) as f:
+        res = json.load(f)
+    meas = res["measure"]
+    checks = {
+        "gloo_cuda": all(res["gloo_cuda"].values()),
+        "tokens_equal_or_near_tie": res["tokens_split"]["ok"],
+        "greedy_consistent": res["greedy"]["ok"],
+        "replica_tokens_equal": res["replica_tokens_equal"],
+        "shard_gauge_identity": all(res["shard_gauge_identity"].values()),
+        "one_signature_a_program": set(res["signatures"].values()) == {1},
+        "probe_tp_size": res["probe_tp_size"] == TP_WORLD,
+        "ran_1_and_2": meas["serve_tp_sizes"] == [1, TP_WORLD],
+        "engine_launches_zero": res["engine_launches"] == 0,
+        "oracle_launches": res["oracle_launches"] == 32 * TP_REQUESTS,
+    }
+    wall = time.perf_counter() - t0
+    emit("serve tp", ok=all(checks.values()), checks=checks,
+         world=TP_WORLD, backend="gloo", engine=TP_ENGINE,
+         requests=TP_REQUESTS, prompt=TP_PROMPT, budget=TP_BUDGET,
+         tokens_per_sec={tp: meas[f"serve_tp{tp}_tokens_per_sec"]
+                         for tp in meas["serve_tp_sizes"]},
+         scaling_eff=meas[f"serve_tp{TP_WORLD}_scaling_eff"],
+         tokens_bit_equal=res["tokens_split"]["bit_equal"],
+         divergence=res["tokens_split"]["divergence"],
+         worst_gap_share=res["greedy"]["worst_gap_share"],
+         gloo_cuda=res["gloo_cuda"], gauges=res["gauges"],
+         shard_param_bytes=res["shard_param_bytes"],
+         leader_max_memory_allocated=res["max_memory_allocated"],
+         setup_s=res["setup_s"], wall_s=wall,
+         launches={"flash_fwd_d128": res["oracle_launches"]})
+    if not all(checks.values()):
+        raise PhaseError(f"serve tp checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"launches": {"flash_fwd_d128": res["oracle_launches"]}}
+
+
+def _keras_probe() -> dict:
+    """Whether ``import keras`` works here on its torch backend (in a
+    child process, so this one imports no keras before ``train keras``)."""
+    env = dict(os.environ, KERAS_BACKEND="torch")
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import keras; print(keras.__version__, keras.backend.backend())"],
+        env=env, capture_output=True, text=True, timeout=300)
+    if r.returncode == 0 and r.stdout.strip():
+        version, backend = r.stdout.split()[-2:]
+        return {"importable": backend == "torch", "version": version,
+                "backend": backend}
+    tail = (r.stderr.strip().splitlines() or ["no output"])[-1]
+    return {"importable": False, "error": tail[-300:]}
+
+
+KERAS_EPOCHS = 2
+
+
+def phase_keras(probe: dict) -> dict:
+    """``train keras``: the twin of ``examples/keras_mnist_advanced.py``
+    (``horovod_tpu_torch.examples.keras_mnist_advanced``) on the card
+    through Keras 3's torch backend, 2 epochs of 4,096 samples with the
+    broadcast, metric-average, warm-up and schedule callbacks: the loss
+    falls, the weights are card tensors and moved from their initial
+    values, and ``hvd.load_model`` of the saved model returns the
+    optimizer wrapped, its weights and iterations equal.  Where keras does
+    not import, the phase is reported skipped (the card part of the Keras
+    frontend is then untested)."""
+    if not probe["importable"]:
+        emit("train keras",
+             skipped=f"keras not importable: {probe.get('error')}")
+        return {"skipped": True}
+    import tempfile
+
+    import numpy as np
+
+    from horovod_tpu_torch.examples import keras_mnist_advanced as example
+
+    os.environ["KERAS_BACKEND"] = "torch"
+    import horovod_tpu_torch.keras as hvd
+
+    keras = hvd._keras()
+    keras.utils.set_random_seed(0)
+    initial = [np.asarray(w) for w in example.build_model(keras)
+               .get_weights()]
+    path = os.path.join(tempfile.mkdtemp(prefix="keras_"), "mnist.keras")
+    t0 = time.perf_counter()
+    out = example.main(["--epochs", str(KERAS_EPOCHS), "--samples", "4096",
+                        "--warmup-epochs", "1", "--save", path])
+    fit_s = time.perf_counter() - t0
+    model, hist = out["model"], out["history"]
+    loaded = hvd.load_model(path)
+    devices = {str(v.value.device) for v in model.trainable_variables}
+    checks = {
+        "finite": all(math.isfinite(x) for x in hist["loss"]),
+        "decreasing": hist["loss"][-1] < hist["loss"][0],
+        "weights_on_the_card": all(d.startswith("cuda") for d in devices),
+        "weights_moved": any(not np.array_equal(a, b)
+                             for a, b in zip(initial, out["weights"])),
+        "load_model_wraps": isinstance(loaded.optimizer,
+                                       hvd._DistributedApplyMixin),
+        "load_model_weights_equal": all(
+            np.array_equal(np.asarray(a), b)
+            for a, b in zip(loaded.get_weights(), out["weights"])),
+        "load_model_iterations": int(loaded.optimizer.iterations.numpy())
+        == int(model.optimizer.iterations.numpy()),
+    }
+    emit("train keras", ok=all(checks.values()), checks=checks,
+         keras=probe["version"], epochs=KERAS_EPOCHS, samples=4096,
+         history={k: [float(x) for x in v] for k, v in hist.items()},
+         devices=sorted(devices), fit_s=fit_s,
+         images_per_s=KERAS_EPOCHS * 4096 / fit_s)
+    if not all(checks.values()):
+        raise PhaseError(f"train keras failed its checks: {checks}")
+    return {"skipped": False}
+
+
 ELASTIC_STEPS = 8
 ELASTIC_FAIL_AT = 5            # the engine dies before this step's backward
 ELASTIC_COMMIT_EVERY = 2
@@ -4722,6 +5033,8 @@ def main(argv=None) -> int:
         phase_chaos(cfg, params, args.seed)
         del params
         torch.cuda.empty_cache()
+        phase = "serve tp"
+        tp = phase_tp(args.seed)
         phase = "fleet simfleet"
         phase_simfleet(args.seed)
         phase = "train"
@@ -4760,6 +5073,8 @@ def main(argv=None) -> int:
         phase_train_compressed(args.seed)
         phase = "fit mnist"
         phase_fit_mnist(args.seed)
+        phase = "train keras"
+        phase_keras(info["keras"])
     except Exception as e:  # every failure ends the run without a result
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
         print(f"chip_smoke: phase {phase!r} failed", file=sys.stderr)
@@ -4772,7 +5087,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": _kernel_rows(build, kern, kern_bwd, gen, bat,
                                               spec, train, kern64, vit,
                                               eager, router, elastic,
-                                              thr, (seqpar, sharded))}),
+                                              thr, (seqpar, sharded), tp)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
@@ -4792,11 +5107,12 @@ def _ptx(build, kernel: str) -> dict:
 
 
 def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
-                 vit, eager, router, elastic, thr, sharded) -> list[dict]:
+                 vit, eager, router, elastic, thr, sharded, tp) -> list[dict]:
     """One row per kernel and head dim: its launches on the main paths
     (D = 128: serving's generate, batcher and the router's fleet,
-    ``measure_throughput``'s static baseline, the Llama train steps and the
-    sharded phases' steps (sequence-parallel, replicated, ZeRO, FSDP); D =
+    ``measure_throughput``'s static baseline, ``serve tp``'s oracle, the
+    Llama train steps and the sharded phases' steps (sequence-parallel,
+    replicated, ZeRO, FSDP); D =
     64: the ViT-B/16 train steps, synchronous, under the
     hook-driven optimizer of ``train eager`` and inside ``elastic.run`` in
     ``train elastic``), its largest error over the bf16 cases
@@ -4822,6 +5138,7 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
                      + spec["launches"][128]
                      + router["launches"]["flash_fwd_d128"]
                      + thr["launches"]["flash_fwd_d128"]
+                     + tp["launches"]["flash_fwd_d128"]
                      + train["launches"]["flash_fwd"]
                      + sum(p["launches"]["flash_fwd"] for p in sharded)),
         "max_abs_err": max(c["o_max_abs_err"] for c in kern["cases"]

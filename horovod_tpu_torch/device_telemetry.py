@@ -39,7 +39,14 @@ instruments read is PyTorch's:
 The live MFU (``serve.mfu``) divides the window's counted FLOPs per
 second by the card's peak from :data:`PEAK_FLOPS_TABLE` (dense bf16, one
 number a card whatever the engine's dtype: an f32 engine is divided by
-the bf16 peak too) or ``HVD_TORCH_PEAK_FLOPS``.  A device without a known
+the bf16 peak too) or ``HVD_TORCH_PEAK_FLOPS``, times ``n_devices``, the
+cards one engine spans (its ``tp_size``, as the reference scales its
+per-chip peak).  A tensor-parallel engine's capture runs its own rank's
+shard of each program (no collective crosses a wire on fake tensors) and
+records the counts times ``shards``: every counted product (the
+projections, the attention einsums, the MLP and the head) splits evenly
+over the ranks, so the FLOPs are the whole program's exactly; the bytes
+are the shards' summed.  A device without a known
 peak (the CPU) leaves ``device.peak_flops_known`` at 0 and the gauge
 absent, never a zero.
 
@@ -79,10 +86,6 @@ PEAK_FLOPS_TABLE: tuple[tuple[str, float], ...] = (
 
 _DEFAULT_WINDOW = 256
 
-#: Cards one engine serves on: the report schema's ``n_devices``.  The
-#: port's engine runs on one card (``tp_size > 1`` is not ported), so the
-#: peak is one card's.
-N_DEVICES = 1
 _DEFAULT_POLL_S = 1.0
 
 
@@ -180,10 +183,12 @@ class DeviceTelemetry:
 
     def __init__(self, registry: "metrics_mod.MetricsRegistry",
                  *, device: torch.device | str | None = None,
+                 n_devices: int = 1,
                  window: int | None = None,
                  poll_s: float | None = None,
                  peak_flops: float | None = None):
         self.metrics = registry
+        self.n_devices = max(int(n_devices), 1)
         self.window = _DEFAULT_WINDOW if window is None else int(window)
         if self.window < 1:
             raise ValueError(
@@ -243,7 +248,8 @@ class DeviceTelemetry:
             per_card = lookup_peak_flops(self.device_kind)
         if per_card is None:
             self.peak_source = None
-        self.peak_flops = per_card
+        self.peak_flops = (per_card * self.n_devices
+                           if per_card is not None else None)
         self.peak_flops_known = self.peak_flops is not None
         self.metrics.gauge("device.peak_flops_known").set(
             1 if self.peak_flops_known else 0)
@@ -261,16 +267,21 @@ class DeviceTelemetry:
         self.param_bytes = int(param_bytes)
         self.kv_total_bytes = int(kv_total_bytes)
 
-    def capture(self, name: str, fn: Any, *args: Any) -> dict:
+    def capture(self, name: str, fn: Any, *args: Any,
+                shards: int = 1) -> dict:
         """Count one call ``fn(*args)`` of program ``name`` (see
-        :func:`count_cost`) and record its row.  ``compile_s`` is 0.0: an
+        :func:`count_cost`) and record its row; ``shards``: ``fn`` is one
+        of that many equal tensor-parallel shards of the program, whose
+        counts are recorded times ``shards``.  ``compile_s`` is 0.0: an
         eager program compiles nothing.  A failed count degrades to a
         zeroed row with an ``error`` and a warning (telemetry never breaks
         serving; callers that must not degrade check the row)."""
         entry = {"flops": 0.0, "bytes_accessed": 0.0, "compile_s": 0.0,
                  "dispatches": 0}
         try:
-            entry["flops"], entry["bytes_accessed"] = count_cost(fn, *args)
+            flops, nbytes = count_cost(fn, *args)
+            entry["flops"], entry["bytes_accessed"] = (flops * shards,
+                                                       nbytes * shards)
         except Exception as exc:  # noqa: BLE001 — degrade, don't break serving
             entry["error"] = repr(exc)
             warnings.warn(
@@ -284,7 +295,7 @@ class DeviceTelemetry:
             "device.capture", program=name, flops=entry["flops"],
             bytes_accessed=entry["bytes_accessed"],
             compile_s=entry["compile_s"], platform=self.platform,
-            device_kind=self.device_kind, n_devices=N_DEVICES,
+            device_kind=self.device_kind, n_devices=self.n_devices,
             peak_flops=self.peak_flops,
             peak_flops_known=self.peak_flops_known)
         return entry
@@ -436,7 +447,7 @@ class DeviceTelemetry:
         ring = list(self._ring)
         return build_report(
             platform=self.platform, device_kind=self.device_kind,
-            n_devices=N_DEVICES, peak_flops=self.peak_flops,
+            n_devices=self.n_devices, peak_flops=self.peak_flops,
             peak_flops_known=self.peak_flops_known,
             peak_source=self.peak_source,
             programs={k: dict(v, dispatches=self.dispatch_totals.get(
@@ -574,10 +585,10 @@ def report_from_events(events: list[dict],
 
 
 def maybe_telemetry(registry: "metrics_mod.MetricsRegistry",
-                    *, device: torch.device | str | None = None
-                    ) -> DeviceTelemetry | None:
+                    *, device: torch.device | str | None = None,
+                    n_devices: int = 1) -> DeviceTelemetry | None:
     """Env factory: a plane when ``HVD_TORCH_DEVICE_TELEMETRY=1``, else
     None (the engine's ``device_telemetry=None`` default routes here)."""
     if os.environ.get("HVD_TORCH_DEVICE_TELEMETRY", "") != "1":
         return None
-    return DeviceTelemetry(registry, device=device)
+    return DeviceTelemetry(registry, device=device, n_devices=n_devices)

@@ -133,7 +133,7 @@ ENV_KNOBS = (
     ("HVD_TORCH_STRAGGLER_WARN_S", "1.0",
      "Step-lag threshold in seconds before a straggler warning."),
     ("HVD_TORCH_TP", "1",
-     "Tensor-parallel degree of ServeEngine (only 1 is ported)."),
+     "Tensor-parallel degree of ServeEngine (cards per serving replica)."),
     ("HVD_TORCH_TRACE_SAMPLE", "0",
      "Fraction of requests head-sampled into the causal tracing plane."),
     ("HVD_TORCH_TRACE_SEED", "0",

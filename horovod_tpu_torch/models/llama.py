@@ -21,8 +21,16 @@ them in ``cfg.dtype`` from load (``param_dtype=cfg.dtype``), which gives
 the same values, since the cast at use is then a no-op.
 
 The sequence-parallel engines (ring, Ulysses, Ulysses over the flash
-kernel) run over ``forward``'s ``sp_group``; the tensor-parallel partition
-specs come with a later slice.
+kernel) run over ``forward``'s ``sp_group``.  Tensor-parallel serving
+(Megatron's split) takes the reference's layout tables,
+:func:`param_partition_specs` and :func:`paged_cache_partition_specs`, as
+data: :func:`shard_params` slices a full tree into one rank's shard, and
+the paged programs take a ``tp_group`` over which each rank runs its own
+heads and MLP columns, with one ``psum`` after the row-parallel ``wo`` and
+``w_down`` products and all-gathers of the embedding's D-slice and the
+logits' vocabulary slice.  Head counts are read from the weights' shapes
+(a shard's ``wq`` has ``n_heads / tp`` heads of ``cfg.head_dim``), so one
+config serves both.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch.utils.checkpoint as ckpt
 
 from horovod_tpu_torch._device import resolve_device
 from horovod_tpu_torch.ops.fused_xent import fused_linear_cross_entropy
+from horovod_tpu_torch.parallel import _collectives as coll
 from horovod_tpu_torch.parallel import attention as attn_mod
 from horovod_tpu_torch.parallel.flash_attention import flash_attention
 
@@ -167,6 +176,97 @@ def num_params(cfg: LlamaConfig) -> int:
     return v * d * 2 + L * per_layer + d
 
 
+def param_partition_specs(cfg: LlamaConfig, *, tp_axis: str = "tp") -> dict:
+    """Megatron-style tensor-parallel layout over ``tp_axis``: each leaf's
+    spec names, per dimension, the mesh axis it is split over (``None``:
+    not split), as the reference's ``PartitionSpec``s do.
+
+    Column-parallel (output dim split): ``wq``/``wk``/``wv``/``w_gate``/
+    ``w_up`` and ``lm_head``; row-parallel (input dim split): ``wo``/
+    ``w_down``, each followed by a ``psum``; ``embed`` on D; the norms
+    replicated."""
+    del cfg
+    t = tp_axis
+    return {
+        "embed": (None, t),
+        "layers": {
+            "attn_norm": (None, None),
+            "wq": (None, None, t),
+            "wk": (None, None, t),
+            "wv": (None, None, t),
+            "wo": (None, t, None),
+            "mlp_norm": (None, None),
+            "w_gate": (None, None, t),
+            "w_up": (None, None, t),
+            "w_down": (None, t, None),
+        },
+        "final_norm": (None,),
+        "lm_head": (None, t),
+    }
+
+
+def paged_cache_partition_specs(*, tp_axis: str = "tp") -> "PagedKVCache":
+    """Head-split layout of the paged KV pool over ``tp_axis``: k/v
+    ``[n_layers, n_blocks, block_size, KVH, Dh]`` on the KV-head axis (the
+    heads the column-parallel ``wk``/``wv`` make locally, so a rank writes
+    its own head slice with no traffic), ``block_table``/``length``
+    replicated: one logical block id addresses the same slot of every
+    rank's slice, which keeps the block pool, the prefix cache and
+    preemption replay shard-blind."""
+    kv = (None, None, None, tp_axis, None)
+    return PagedKVCache(k=kv, v=kv, block_table=(), length=())
+
+
+def shard_params(params: dict, specs: dict, rank: int, size: int) -> dict:
+    """Rank ``rank``'s shard of a full parameter tree: every leaf whose
+    spec names an axis is cut into ``size`` equal slices along that
+    dimension and slice ``rank`` kept; the others are kept whole.  Every
+    leaf is copied, so the full tree can be freed."""
+    def cut(x: torch.Tensor, spec: tuple) -> torch.Tensor:
+        dims = [i for i, a in enumerate(spec) if a is not None]
+        if not dims:
+            return x.clone()
+        (dim,) = dims
+        if x.shape[dim] % size:
+            raise ValueError(
+                f"shard_params: dimension {dim} of {tuple(x.shape)} does "
+                f"not split over {size} ranks")
+        n = x.shape[dim] // size
+        return x.narrow(dim, rank * n, n).clone()
+
+    def walk(p, s):
+        if isinstance(p, dict):
+            return {k: walk(p[k], s[k]) for k in p}
+        return cut(p, s)
+
+    return walk(params, specs)
+
+
+def _is_fake(x: torch.Tensor) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(x, FakeTensor)
+
+
+def _tp_psum(x: torch.Tensor, tp_group) -> torch.Tensor:
+    """The row-parallel reduction; none without a group.  A fake tensor
+    (the device plane's cost capture) crosses no wire."""
+    if tp_group is None or _is_fake(x):
+        return x
+    return coll.psum(x, tp_group)
+
+
+def _tp_gather(x: torch.Tensor, tp_group) -> torch.Tensor:
+    """Every rank's slice of the last dimension, in rank order; none
+    without a group.  A fake tensor gets the gathered shape only."""
+    if tp_group is None:
+        return x
+    if _is_fake(x):
+        return torch.cat([x] * torch.distributed.get_world_size(tp_group),
+                         dim=-1)
+    return coll.all_gather(x, x.dim() - 1, tp_group)
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """Normalise in f32, cast back to x.dtype, then scale in x.dtype."""
     x32 = x.float()
@@ -235,32 +335,37 @@ def _layer(params: dict, i: int) -> dict:
     return {name: params["layers"][name][i] for name in _LAYER_KEYS}
 
 
-def _mlp(cfg: LlamaConfig, x, lp):
+def _mlp(cfg: LlamaConfig, x, lp, tp_group=None):
     dt = cfg.dtype
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
     gate = F.silu(h @ lp["w_gate"].to(dt))
     up = h @ lp["w_up"].to(dt)
-    return x + (gate * up) @ lp["w_down"].to(dt)
+    return x + _tp_psum((gate * up) @ lp["w_down"].to(dt), tp_group)
 
 
 def _qkv(cfg: LlamaConfig, x, lp, cos, sin):
+    # heads from the weights' widths: a tensor-parallel shard holds
+    # n_heads / tp of them, each of cfg.head_dim
     dt = cfg.dtype
     b, l = x.shape[:2]
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["wq"].to(dt)).reshape(b, l, cfg.n_heads, cfg.head_dim)
-    k = (h @ lp["wk"].to(dt)).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ lp["wv"].to(dt)).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
+    q = (h @ lp["wq"].to(dt)).reshape(b, l, -1, cfg.head_dim)
+    k = (h @ lp["wk"].to(dt)).reshape(b, l, -1, cfg.head_dim)
+    v = (h @ lp["wv"].to(dt)).reshape(b, l, -1, cfg.head_dim)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig):
+def _embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+           tp_group=None):
     # gather first, THEN cast: converts [B, L, D] activations, not the
     # whole [V, D] table.
-    return params["embed"][tokens].to(cfg.dtype)
+    return _tp_gather(params["embed"][tokens].to(cfg.dtype), tp_group)
 
 
-def _logits(params: dict, x: torch.Tensor, cfg: LlamaConfig):
-    return (x @ params["lm_head"].to(cfg.dtype)).float()
+def _logits(params: dict, x: torch.Tensor, cfg: LlamaConfig,
+            tp_group=None):
+    return _tp_gather((x @ params["lm_head"].to(cfg.dtype)).float(),
+                      tp_group)
 
 
 _REMAT_POLICIES = (
@@ -475,17 +580,18 @@ def _cached_attention(cfg: LlamaConfig, q, kc, vc, valid):
     """Attention of new queries over cached K/V, in f32 (decode is bound by
     cache traffic, not by the products).  GQA folds the query heads onto
     their KV head (q head h ↔ kv head h // R) instead of expanding the
-    cache.  q: [B, T, H, Dh]; kc/vc: [B, M, KVH, Dh]; valid broadcasts over
+    cache.  q: [B, T, H, Dh]; kc/vc: [B, M, KVH, Dh] (H and KVH a
+    tensor-parallel shard's own, R the same); valid broadcasts over
     [B, KVH, R, T, M]."""
-    b, t = q.shape[:2]
-    n_rep = cfg.n_heads // cfg.n_kv_heads
+    b, t, n_heads = q.shape[:3]
+    n_kv = kc.shape[2]
     scale = 1.0 / (cfg.head_dim ** 0.5)
-    qg = q.reshape(b, t, cfg.n_kv_heads, n_rep, cfg.head_dim)
+    qg = q.reshape(b, t, n_kv, n_heads // n_kv, cfg.head_dim)
     s = torch.einsum("bqkrd,bmkd->bkrqm", qg.float(), kc.float()) * scale
     s = torch.where(valid, s, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkrqm,bmkd->bqkrd", p, vc.float())
-    return o.to(cfg.dtype).reshape(b, t, cfg.dim)
+    return o.to(cfg.dtype).reshape(b, t, n_heads * cfg.head_dim)
 
 
 def decode_step(params: dict, token: torch.Tensor, cfg: LlamaConfig,
@@ -647,13 +753,15 @@ class PagedKVCache(NamedTuple):
 
 def init_paged_cache(cfg: LlamaConfig, n_slots: int, max_len: int, *,
                      block_size: int, n_blocks: int | None = None,
-                     device: str | torch.device | None = None
-                     ) -> PagedKVCache:
+                     device: str | torch.device | None = None,
+                     tp_size: int = 1) -> PagedKVCache:
     """A paged pool for ``n_slots`` rows of logical depth ``max_len``.
 
     ``n_blocks`` defaults to full backing (every slot can hold max_len)
     plus the trash block; pass less to overcommit and let the scheduler
-    admission-gate on free blocks."""
+    admission-gate on free blocks.  ``tp_size``: one tensor-parallel
+    rank's pool, ``n_kv_heads / tp_size`` heads of every block
+    (:func:`paged_cache_partition_specs`)."""
     if max_len % block_size:
         raise ValueError(
             f"max_len {max_len} not a multiple of block_size {block_size}")
@@ -665,7 +773,7 @@ def init_paged_cache(cfg: LlamaConfig, n_slots: int, max_len: int, *,
         raise ValueError(
             f"n_blocks {n_blocks} cannot back even one full slot "
             f"({per} blocks) plus the trash block")
-    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads // tp_size,
              cfg.head_dim)
     return PagedKVCache(
         k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -781,7 +889,7 @@ class BlockPool:
 
 
 def _paged_attend(params, tokens, cfg: LlamaConfig, kv_k, kv_v, qpos,
-                  wflat, gflat):
+                  wflat, gflat, tp_group=None):
     """Shared body of the paged decode paths: scatter the chunk's K/V at
     flat physical positions ``wflat`` [B, T] (in place), gather each row's
     dense [M] view via ``gflat`` [B, M], and run :func:`decode_chunk`'s
@@ -790,11 +898,17 @@ def _paged_attend(params, tokens, cfg: LlamaConfig, kv_k, kv_v, qpos,
     tensors of the same shapes: the logits are bit for bit the dense
     path's (gathered garbage past a row's frontier is masked to an exact
     zero softmax term, as dense pad slots are).  Repeated indices in
-    ``wflat`` occur only in the trash block, where any winner is fine."""
+    ``wflat`` occur only in the trash block, where any winner is fine.
+
+    ``tp_group``: ``params`` and the pool are this rank's Megatron shard
+    (:func:`shard_params`, :func:`paged_cache_partition_specs`); the
+    embedding's D-slice and the logits' vocabulary slice are all-gathered
+    and the ``wo`` and ``w_down`` products summed over the group, so every
+    rank returns the same full f32 logits."""
     b, t = tokens.shape
     _, n_blocks, bs, kvh, dh = kv_k.shape
     m = gflat.shape[1]
-    x = _embed(params, tokens, cfg)                       # [B, T, D]
+    x = _embed(params, tokens, cfg, tp_group)             # [B, T, D]
     cos, sin = rope_tables(cfg, qpos)
     valid = torch.arange(m, device=x.device)[None, None, :] <= qpos[:, :, None]
     valid = valid[:, None, None, :, :]                    # [B,1,1,T,M]
@@ -806,10 +920,10 @@ def _paged_attend(params, tokens, cfg: LlamaConfig, kv_k, kv_v, qpos,
         kf[wflat] = k
         vf[wflat] = v
         o = _cached_attention(cfg, q, kf[gflat], vf[gflat], valid)
-        x = x + o @ lp["wo"].to(cfg.dtype)
-        x = _mlp(cfg, x, lp)
+        x = x + _tp_psum(o @ lp["wo"].to(cfg.dtype), tp_group)
+        x = _mlp(cfg, x, lp, tp_group)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, x, cfg)
+    return _logits(params, x, cfg, tp_group)
 
 
 def _gather_index(table: torch.Tensor, bs: int) -> torch.Tensor:
@@ -822,7 +936,7 @@ def _gather_index(table: torch.Tensor, bs: int) -> torch.Tensor:
 
 def decode_chunk_paged(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
                        pcache: PagedKVCache, *,
-                       advance: torch.Tensor | None = None):
+                       advance: torch.Tensor | None = None, tp_group=None):
     """Paged :func:`decode_chunk`: T tokens per row against the block pool;
     token j of row r lands in the physical block its table maps position
     ``length_r + j`` to.  Returns (logits [B, T, V] f32, pcache) with the
@@ -831,7 +945,8 @@ def decode_chunk_paged(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
     ``advance`` [B]: optional per-row length increments (0 or T), so a
     fixed-shape serving tick holds idle rows in place: they still compute,
     their writes land in their own blocks (trash for free rows) and their
-    length stays put.  ``None`` advances every row by T."""
+    length stays put.  ``None`` advances every row by T.  ``tp_group``: a
+    tensor-parallel shard's pass (:func:`_paged_attend`)."""
     b, t = tokens.shape
     bs = pcache.block_size
     per = pcache.block_table.shape[1]
@@ -842,14 +957,15 @@ def decode_chunk_paged(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
                         torch.clamp(qpos // bs, 0, per - 1))
     wflat = wblk * bs + qpos % bs                         # [B, T]
     logits = _paged_attend(params, tokens, cfg, pcache.k, pcache.v, qpos,
-                           wflat, _gather_index(pcache.block_table, bs))
+                           wflat, _gather_index(pcache.block_table, bs),
+                           tp_group)
     pcache.length.add_(t if advance is None else advance)
     return logits, pcache
 
 
 def spec_verify_paged(params: dict, cfg: LlamaConfig, pcache: PagedKVCache,
                       last_logits: torch.Tensor, drafts: torch.Tensor,
-                      active: torch.Tensor):
+                      active: torch.Tensor, *, tp_group=None):
     """One batched self-speculation verify round over the paged pool: every
     row argmaxes its last logits into ``tok`` and decodes the
     ``(K + 1)``-wide chunk ``[tok, d_1..d_K]`` in one
@@ -862,12 +978,13 @@ def spec_verify_paged(params: dict, cfg: LlamaConfig, pcache: PagedKVCache,
     alone (write-before-read).  Every emitted token is the target's own
     argmax, so outputs equal solo greedy :func:`generate` whatever the
     drafter proposed.  Returns ``(tok [B], accept [B], next_logits [B, V],
-    pcache)``."""
+    pcache)``.  ``tp_group``: a tensor-parallel shard's round (every rank
+    gets the same full logits, so the same acceptances)."""
     b, k = drafts.shape
     tok = torch.argmax(last_logits, dim=-1)
     chunk = torch.cat([tok[:, None], drafts], dim=1)      # [B, K+1]
     logits, pcache = decode_chunk_paged(params, chunk, cfg, pcache,
-                                        advance=0)
+                                        advance=0, tp_group=tp_group)
     preds = torch.argmax(logits, dim=-1)                  # [B, K+1]
     match = (drafts == preds[:, :k]).to(torch.int64)
     accept = torch.cumprod(match, dim=1).sum(dim=1)       # [B]
@@ -878,12 +995,13 @@ def spec_verify_paged(params: dict, cfg: LlamaConfig, pcache: PagedKVCache,
 
 def decode_chunk_paged_row(params: dict, tokens: torch.Tensor,
                            cfg: LlamaConfig, pcache: PagedKVCache,
-                           slot: int, *, new_length: int):
+                           slot: int, *, new_length: int, tp_group=None):
     """One row's T-token chunk against the pool: the chunked-prefill
     admission program.  ``tokens`` [1, T] continue slot ``slot`` from its
     current length; the row's length becomes ``new_length`` (the true
     frontier: for a padded final window less than ``length + T``).  Only
-    this slot's blocks (and trash, for pad overflow) are written."""
+    this slot's blocks (and trash, for pad overflow) are written.
+    ``tp_group``: a tensor-parallel shard's window."""
     b, t = tokens.shape
     if b != 1:
         raise ValueError(f"decode_chunk_paged_row is a B=1 program, "
@@ -896,7 +1014,7 @@ def decode_chunk_paged_row(params: dict, tokens: torch.Tensor,
     wblk = row_table[0][torch.clamp(qpos // bs, 0, per - 1)]
     wflat = wblk * bs + qpos % bs
     logits = _paged_attend(params, tokens, cfg, pcache.k, pcache.v, qpos,
-                           wflat, _gather_index(row_table, bs))
+                           wflat, _gather_index(row_table, bs), tp_group)
     pcache.length[slot] = new_length
     return logits, pcache
 

@@ -1,7 +1,8 @@
 """Parallelism strategies of the port: data parallelism (``optim/``), and
 sequence parallelism (ring and Ulysses attention), pipeline parallelism and
 expert parallelism (``models/moe.py``) over the differentiable collectives
-of ``_collectives.py``.  (``flash_attention`` stays a module here: its
+of ``_collectives.py``, and the rank meshes (``mesh.py``) that tensor-parallel
+serving shards over.  (``flash_attention`` stays a module here: its
 kernels' counters are read as ``parallel.flash_attention.launches``.)"""
 
 from horovod_tpu_torch.parallel.attention import (  # noqa: F401
@@ -12,6 +13,11 @@ from horovod_tpu_torch.parallel.attention import (  # noqa: F401
     zigzag_positions,
     zigzag_shard,
     zigzag_unshard,
+)
+from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
+    data_parallel_mesh,
+    make_mesh,
+    tensor_parallel_mesh,
 )
 from horovod_tpu_torch.parallel.pipeline import (  # noqa: F401
     pipeline_forward,

@@ -60,12 +60,31 @@ program, ``serve.mfu``, the HBM gauges and the ``device_sync`` split).
 The reference keeps its telemetry plane at ``engine.device``; here
 ``device`` is the torch device and the plane is ``device_telemetry``.
 
-:func:`measure_throughput`, :func:`measure_prefix_throughput` and
-:func:`measure_spec_throughput` are the bench arms; the reference's
-``measure_tp_throughput`` waits for tensor-parallel serving.
-Tensor-parallel serving (``tp_size > 1``, ROADMAP item 12b) raises
-``NotImplementedError``.  The engine is greedy-only; sampling pools stay
-on :class:`~horovod_tpu_torch.serving.ContinuousBatcher`.
+:func:`measure_throughput`, :func:`measure_prefix_throughput`,
+:func:`measure_spec_throughput` and :func:`measure_tp_throughput` are the
+bench arms.  The engine is greedy-only; sampling pools stay on
+:class:`~horovod_tpu_torch.serving.ContinuousBatcher`.
+
+Tensor-parallel serving (``tp_size > 1``): the reference drives N chips
+from one host scheduler; the port runs one process per GPU, so rank 0 of
+the ``tp`` axis of a
+:func:`~horovod_tpu_torch.parallel.mesh.tensor_parallel_mesh` **leads** and
+the others **follow**.  Every rank constructs the engine (from the same
+full parameters or from its
+:func:`~horovod_tpu_torch.models.llama.shard_params` shard) and holds its
+Megatron shard of the weights and its head slice of the paged pool.  The
+leader owns everything on the host (scheduler, block pool, prefix cache,
+block tables, traces, metrics and planes); its four programs are the only
+way to the device state, so before it runs its shard of one it broadcasts
+the program's name and host arguments over the mesh's gloo host group (the
+command channel), and a follower's blocking :meth:`ServeEngine.follow`
+runs the same program on its shard.  The programs' own collectives (one
+psum after ``wo`` and one after ``w_down`` a layer, all-gathers of the
+embedding and the logits) run on the ``tp`` group, so every rank holds the
+same logits and makes the same greedy choices.  Constructing, cloning
+(:func:`~horovod_tpu_torch.supervisor.clone_engine`) and
+:meth:`ServeEngine.close` are commands too; ``follow()`` returns when the
+leader has closed every engine the follower holds.
 """
 
 from __future__ import annotations
@@ -74,11 +93,13 @@ import dataclasses
 import json
 import os
 import sys
+import threading
 import time
 from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from horovod_tpu_torch import alerts as alerts_mod
@@ -93,6 +114,7 @@ from horovod_tpu_torch import timeseries as timeseries_mod
 from horovod_tpu_torch import tracing as tracing_mod
 from horovod_tpu_torch.metrics import Trace
 from horovod_tpu_torch.models import llama
+from horovod_tpu_torch.parallel.mesh import tensor_parallel_mesh
 from horovod_tpu_torch.prefix_cache import RadixPrefixCache
 from horovod_tpu_torch.serving import (
     CANCELLED, FAILED, OK, REJECTED, TIMEOUT, Request, RequestResult,
@@ -178,15 +200,113 @@ def _signature(x) -> Any:
 class _Program:
     """One of the engine's device programs: a plain function plus the set
     of argument signatures it has been called with (the port's stand-in
-    for a jit cache; one signature is what a captured CUDA graph needs)."""
+    for a jit cache; one signature is what a captured CUDA graph needs).
+    On a tensor-parallel leader, ``announce(args)`` sends the call to the
+    followers first, under the channel's lock, so that the ranks run the
+    programs (and their collectives) in one order."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, announce=None, lock=None):
         self.fn = fn
         self.signatures: set = set()
+        self.announce = announce
+        self.lock = lock
 
     def __call__(self, *args):
         self.signatures.add(_signature(args))
-        return self.fn(*args)
+        if self.announce is None:
+            return self.fn(*args)
+        with self.lock:
+            self.announce(args)
+            return self.fn(*args)
+
+
+class _Ref:
+    """A command argument naming one of the engine's own device states
+    (``params``, ``pcache`` or ``last_logits``): each rank reads its own."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+
+_REF_NAMES = ("params", "pcache", "last_logits")
+# the output of each program that becomes the engine's last_logits
+_LOGITS_OUT = {"tick": 1, "spec_tick": 2}
+
+
+class _TPChannel:
+    """The command channel of one tensor-parallel mesh: the leader (``tp``
+    rank 0) broadcasts commands over the mesh's gloo host group, the
+    followers receive them in order.  ``engines``: this rank's live
+    engines on the mesh, by id (the leader numbers them in construction
+    order and sends the number with each command).  ``lock``: held by the
+    leader from a command's send to the end of its program, so programs of
+    engines served from different threads do not interleave their
+    collectives."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.group = mesh.group("tp")
+        self.host_group = mesh.host_group("tp")
+        self.rank = mesh.coordinate("tp")
+        self.leader = self.rank == 0
+        self.src = int(mesh.ranks.reshape(-1)[0])
+        self.lock = threading.Lock()
+        self.next_id = 0
+        self.engines: dict[int, ServeEngine] = {}
+
+    @classmethod
+    def of(cls, mesh) -> "_TPChannel":
+        ch = getattr(mesh, "_serve_channel", None)
+        if ch is None:
+            ch = mesh._serve_channel = cls(mesh)
+        return ch
+
+    def send(self, cmd: tuple) -> None:
+        dist.broadcast_object_list([cmd], src=self.src,
+                                   group=self.host_group)
+
+    def recv(self) -> tuple:
+        box = [None]
+        dist.broadcast_object_list(box, src=self.src, group=self.host_group)
+        return box[0]
+
+    def follow(self) -> None:
+        """A follower's loop: run the leader's commands until this rank
+        holds no live engine."""
+        while self.engines:
+            kind, *rest = self.recv()
+            if kind == "run":
+                eid, name, args = rest
+                self.engines[eid]._apply(name, args)
+            elif kind == "construct":
+                (spec,) = rest
+                src = self.engines.get(spec["params_of"])
+                if src is None:
+                    raise RuntimeError(
+                        "the tensor-parallel leader built an engine from "
+                        "parameters no live engine of this rank holds; "
+                        "construct such an engine on every rank instead")
+                ServeEngine._follower(src.params, src.cfg, self, spec)
+            elif kind == "close":
+                self.engines.pop(rest[0], None)
+            else:
+                raise RuntimeError(f"unknown tensor-parallel command "
+                                   f"{kind!r}")
+
+
+def _shard_of(params: dict, cfg: llama.LlamaConfig, tp_size: int,
+              rank: int) -> dict:
+    """This rank's Megatron shard: ``params`` as they are when they are
+    one already (``embed`` D / tp wide), else sliced from the full tree."""
+    width = params["embed"].shape[1]
+    if width == cfg.dim:
+        return llama.shard_params(
+            params, llama.param_partition_specs(cfg), rank, tp_size)
+    if width * tp_size == cfg.dim:
+        return params
+    raise ValueError(
+        f"params' embed is {width} wide: neither cfg.dim={cfg.dim} (full) "
+        f"nor cfg.dim / tp_size={cfg.dim // tp_size} (one rank's shard)")
 
 
 class ServeEngine:
@@ -238,8 +358,14 @@ class ServeEngine:
     (``fifo`` / ``priority`` / ``edf``) or ``None`` for
     ``HVD_TORCH_SCHED_POLICY``.
 
-    ``tp_size`` (``None`` reads ``HVD_TORCH_TP``, default 1) must be 1:
-    tensor-parallel serving is not ported.
+    ``tp_size`` (``None`` reads ``HVD_TORCH_TP``, default 1): the ranks a
+    tensor-parallel engine spans, the ``tp`` axis of ``mesh`` (default:
+    :func:`~horovod_tpu_torch.parallel.mesh.tensor_parallel_mesh` over the
+    world's first ``tp_size`` ranks).  It must divide ``n_heads``,
+    ``n_kv_heads``, ``dim``, ``ffn_dim`` and ``vocab_size``.  Every rank of
+    the mesh constructs the engine; the leader (``is_leader``) serves, a
+    follower calls :meth:`follow` (module docstring).  The KV gauges are
+    logical (the shard's × ``tp_size``), ``kv.shard_*`` one rank's.
 
     The measurement planes take the reference's values: ``None`` reads the
     environment, ``False`` turns the plane off, an instance is used as it
@@ -266,6 +392,7 @@ class ServeEngine:
                  block_size: int | None = None,
                  n_blocks: int | None = None,
                  tp_size: int | None = None,
+                 mesh: Any = None,
                  timeline: Any = None,
                  preempt_after: int | None = None,
                  max_retries: int = 2,
@@ -300,24 +427,35 @@ class ServeEngine:
         if tp_size < 1:
             raise ValueError(f"tp_size must be >= 1, got {tp_size}")
         if tp_size > 1:
-            raise NotImplementedError(
-                "tensor-parallel serving (tp_size > 1) is not ported yet; "
-                "it joins sequence parallelism as a multi-rank item")
-        self.tp_size = 1
-        self.params = params
-        self.cfg = cfg
-        self.device = params["embed"].device
-        self.n_slots = n_slots
-        self.max_len = max_len
-        self.chunk = chunk
-        self.block_size = block_size
-        self.timeline = timeline
-        self.preempt_after = preempt_after
-        self.max_retries = max_retries
-        self.watchdog_steps = watchdog_steps
-        self.faults = faults if faults is not None else faults_mod.DEFAULT
-        self.metrics = metrics if metrics is not None else metrics_mod.DEFAULT
-        self.policy = scheduling_mod.resolve_policy(policy)
+            for dim_name, dim in (("n_heads", cfg.n_heads),
+                                  ("n_kv_heads", cfg.n_kv_heads),
+                                  ("dim", cfg.dim),
+                                  ("ffn_dim", cfg.ffn_dim),
+                                  ("vocab_size", cfg.vocab_size)):
+                if dim % tp_size:
+                    raise ValueError(
+                        f"tp_size={tp_size} does not divide "
+                        f"cfg.{dim_name}={dim}: every tp-sharded axis "
+                        f"must split evenly across the mesh")
+        self.tp_size = tp_size
+        self.mesh = None
+        self._tp: _TPChannel | None = None
+        self._id = -1
+        self._closed = False
+        if tp_size > 1:
+            self.mesh = (tensor_parallel_mesh(tp_size) if mesh is None
+                         else mesh)
+            ranks = self.mesh.shape.get("tp")
+            if ranks != tp_size:
+                raise ValueError(
+                    f"tp_size={tp_size} does not match the mesh's tp axis "
+                    f"of {ranks} ranks")
+            if self.mesh.coordinate("tp") is None:
+                raise ValueError(
+                    f"rank {dist.get_rank()} is not in the tensor-parallel "
+                    f"mesh {self.mesh.ranks.tolist()}")
+            self._tp = _TPChannel.of(self.mesh)
+            params = _shard_of(params, cfg, tp_size, self._tp.rank)
         if spec is None:
             spec = os.environ.get("HVD_TORCH_SPEC", "") == "1"
         if draft_k is None:
@@ -325,8 +463,37 @@ class ServeEngine:
             draft_k = int(raw) if raw else drafting_mod.DEFAULT_DRAFT_K
         if spec and draft_k < 1:
             raise ValueError(f"draft_k must be >= 1, got {draft_k}")
+        self.params = params
+        self.cfg = cfg
+        self.device = params["embed"].device
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.chunk = chunk
+        self.block_size = block_size
         self.spec = bool(spec)
         self.draft_k = int(draft_k)
+        if self._tp is not None and not self._tp.leader:
+            # a follower holds the device state only: its geometry is the
+            # leader's, checked against its own arguments
+            kind, announced = self._tp.recv()
+            if kind != "construct":
+                raise RuntimeError(f"tensor-parallel follower expected the "
+                                   f"leader's construct, got {kind!r}")
+            mine = self._geometry(n_blocks)
+            theirs = {k: announced[k] for k in mine}
+            if mine != theirs:
+                raise ValueError(
+                    f"tensor-parallel follower built with {mine}, the "
+                    f"leader with {theirs}")
+            self._init_follower(announced)
+            return
+        self.timeline = timeline
+        self.preempt_after = preempt_after
+        self.max_retries = max_retries
+        self.watchdog_steps = watchdog_steps
+        self.faults = faults if faults is not None else faults_mod.DEFAULT
+        self.metrics = metrics if metrics is not None else metrics_mod.DEFAULT
+        self.policy = scheduling_mod.resolve_policy(policy)
         self.spec_counters = {"rounds": 0, "row_rounds": 0,
                               "proposed": 0, "accepted": 0}
         if self.spec:
@@ -354,10 +521,10 @@ class ServeEngine:
             self.device_telemetry = None
         elif device_telemetry is None:
             self.device_telemetry = device_telemetry_mod.maybe_telemetry(
-                self.metrics, device=self.device)
+                self.metrics, device=self.device, n_devices=tp_size)
         elif device_telemetry is True:
             self.device_telemetry = device_telemetry_mod.DeviceTelemetry(
-                self.metrics, device=self.device)
+                self.metrics, device=self.device, n_devices=tp_size)
         else:
             self.device_telemetry = device_telemetry
         # Retrace sentry: compile_cache_sizes() is diffed every step and
@@ -402,25 +569,22 @@ class ServeEngine:
             raise ValueError(
                 f"monitor must be None / False / port int / "
                 f"MonitorServer, got {monitor!r}")
-        self.pcache = llama.init_paged_cache(
-            cfg, n_slots, max_len, block_size=block_size,
-            n_blocks=n_blocks, device=self.device)
-        self.blocks_per_slot = self.pcache.block_table.shape[1]
+        self._init_device_state(n_blocks)
         total = self.pcache.k.shape[1]
         self.pool = llama.BlockPool(total)
         # the SAME list object the pool allocates from (white-box tests
         # drain it to force block starvation)
         self._free_blocks = self.pool._free
         # one physical block holds block_size positions of K and V across
-        # every layer
+        # every layer; this rank's pool holds n_kv_heads / tp_size of its
+        # heads, so a logical block is tp_size shard blocks (the head axis
+        # divides evenly, checked above)
         kb = self.pcache.k
-        self._block_bytes = (2 * kb.element_size() * kb.shape[0]
-                             * kb.shape[2] * kb.shape[3] * kb.shape[4])
+        self._shard_block_bytes = (2 * kb.element_size() * kb.shape[0]
+                                   * kb.shape[2] * kb.shape[3] * kb.shape[4])
+        self._block_bytes = self._shard_block_bytes * self.tp_size
         self.metrics.gauge("kv.block_bytes").set(self._block_bytes)
         self.metrics.gauge("kv.total_bytes").set(self._block_bytes * total)
-        # per-chip gauges equal the logical ones on one card; they exist
-        # so scrapes keep the reference's schema
-        self._shard_block_bytes = self._block_bytes
         self.metrics.gauge("tp.size").set(self.tp_size)
         self.metrics.gauge("kv.shard_block_bytes").set(
             self._shard_block_bytes)
@@ -433,10 +597,6 @@ class ServeEngine:
                                 "tokens_skipped": 0, "evictions": 0}
         self._verify_blocks = os.environ.get(
             "HVD_TORCH_VERIFY_BLOCKS", "") == "1"
-        self._trash_row = np.zeros((self.blocks_per_slot,), np.int64)
-        self.last_logits = torch.zeros((n_slots, cfg.vocab_size),
-                                       dtype=torch.float32,
-                                       device=self.device)
         self._slots = [_Slot() for _ in range(n_slots)]
         self._queue: list[_QueueEntry] = []
         self._next_id = 0
@@ -451,6 +611,41 @@ class ServeEngine:
                          "cancellations": 0, "rejections": 0,
                          "retries": 0, "failures": 0}
         self.step_index = 0
+        # The cost capture runs on fake tensors and calls each program's
+        # plain function, so it adds no signature: taking the sentry
+        # baseline after it proves that on every construction.
+        if self.device_telemetry is not None:
+            self._device_capture_programs(self.device_telemetry)
+        # Sentry baseline: all zeros before warm-up.  The first call of
+        # each program (0 -> 1) is legitimate; only growth BEYOND one
+        # signature per program counts.
+        self._jit_cache_seen = self.compile_cache_sizes()
+        if self._tp is not None:
+            self._announce()
+
+    # -- device state and programs (every rank of a tensor-parallel mesh) --
+
+    def _geometry(self, n_blocks: int | None) -> dict:
+        per = self.max_len // self.block_size
+        return {"n_slots": self.n_slots, "max_len": self.max_len,
+                "chunk": self.chunk, "block_size": self.block_size,
+                "n_blocks": (self.n_slots * per + 1 if n_blocks is None
+                             else n_blocks),
+                "spec": self.spec, "draft_k": self.draft_k}
+
+    def _init_device_state(self, n_blocks: int | None) -> None:
+        """The paged pool (this rank's head slice of it), the last logits
+        and the four programs."""
+        cfg = self.cfg
+        tpg = None if self._tp is None else self._tp.group
+        self.pcache = llama.init_paged_cache(
+            cfg, self.n_slots, self.max_len, block_size=self.block_size,
+            n_blocks=n_blocks, device=self.device, tp_size=self.tp_size)
+        self.blocks_per_slot = self.pcache.block_table.shape[1]
+        self._trash_row = np.zeros((self.blocks_per_slot,), np.int64)
+        self.last_logits = torch.zeros((self.n_slots, cfg.vocab_size),
+                                       dtype=torch.float32,
+                                       device=self.device)
 
         def _tick(params, pcache, last_logits, active):
             # every row argmaxes its last logits and decodes one position;
@@ -459,7 +654,8 @@ class ServeEngine:
             # blocks or trash: invariant 1)
             tok = torch.argmax(last_logits, dim=-1)
             logits, _ = llama.decode_chunk_paged(
-                params, tok[:, None], cfg, pcache, advance=active)
+                params, tok[:, None], cfg, pcache, advance=active,
+                tp_group=tpg)
             return tok, logits[:, 0]
 
         def _chunk(params, pcache, last_logits, toks, slot, new_len, sel):
@@ -467,7 +663,8 @@ class ServeEngine:
             # window position whose logits seed decoding (only the final
             # window's pick survives)
             logits, _ = llama.decode_chunk_paged_row(
-                params, toks, cfg, pcache, slot, new_length=new_len)
+                params, toks, cfg, pcache, slot, new_length=new_len,
+                tp_group=tpg)
             last_logits[slot] = logits[0, sel]
 
         def _set_row(pcache, slot, row, length):
@@ -479,22 +676,114 @@ class ServeEngine:
 
         def _spec_tick(params, pcache, last_logits, drafts, active):
             tok, accept, next_logits, _ = llama.spec_verify_paged(
-                params, cfg, pcache, last_logits, drafts, active)
+                params, cfg, pcache, last_logits, drafts, active,
+                tp_group=tpg)
             return tok, accept, next_logits
 
-        self._tick = _Program(_tick)
-        self._chunk = _Program(_chunk)
-        self._set_row = _Program(_set_row)
-        self._spec_tick = _Program(_spec_tick) if self.spec else None
-        # The cost capture runs on fake tensors and calls each program's
-        # plain function, so it adds no signature: taking the sentry
-        # baseline after it proves that on every construction.
-        if self.device_telemetry is not None:
-            self._device_capture_programs(self.device_telemetry)
-        # Sentry baseline: all zeros before warm-up.  The first call of
-        # each program (0 -> 1) is legitimate; only growth BEYOND one
-        # signature per program counts.
-        self._jit_cache_seen = self.compile_cache_sizes()
+        leading = self._tp is not None and self._tp.leader
+
+        def program(name, fn):
+            if not leading:
+                return _Program(fn)
+            return _Program(fn, lambda args: self._send_run(name, args),
+                            self._tp.lock)
+
+        self._tick = program("tick", _tick)
+        self._chunk = program("chunk", _chunk)
+        self._set_row = program("set_row", _set_row)
+        self._spec_tick = (program("spec_tick", _spec_tick) if self.spec
+                           else None)
+
+    def _init_follower(self, spec: dict) -> None:
+        """A follower's state: the device state of the engine the leader
+        announced, under the leader's id for it."""
+        self._init_device_state(spec["n_blocks"])
+        self._id = spec["id"]
+        self._tp.engines[self._id] = self
+
+    @classmethod
+    def _follower(cls, params: dict, cfg: llama.LlamaConfig,
+                  channel: _TPChannel, spec: dict) -> "ServeEngine":
+        """A follower's engine built on the leader's command (a clone's)."""
+        eng = cls.__new__(cls)
+        eng.params, eng.cfg = params, cfg
+        eng.device = params["embed"].device
+        eng.tp_size, eng.mesh, eng._tp = (channel.mesh.size, channel.mesh,
+                                          channel)
+        eng._closed = False
+        for k in ("n_slots", "max_len", "chunk", "block_size", "spec",
+                  "draft_k"):
+            setattr(eng, k, spec[k])
+        eng._init_follower(spec)
+        return eng
+
+    def _announce(self) -> None:
+        """Leader: number this engine and have the followers build theirs
+        (from the parameters of the engine that holds these, when one
+        does: a clone's source)."""
+        ch = self._tp
+        params_of = next((i for i, e in ch.engines.items()
+                          if e.params is self.params), None)
+        with ch.lock:
+            self._id = ch.next_id
+            ch.next_id += 1
+            ch.send(("construct", dict(
+                self._geometry(int(self.pcache.k.shape[1])), id=self._id,
+                params_of=params_of)))
+            ch.engines[self._id] = self
+
+    def _send_run(self, name: str, args: tuple) -> None:
+        if self._closed:
+            raise RuntimeError("this tensor-parallel engine was closed")
+
+        def encode(a):
+            for ref in _REF_NAMES:
+                if a is getattr(self, ref):
+                    return _Ref(ref)
+            if isinstance(a, torch.Tensor):
+                # only uploads (_up) carry their host array; any other
+                # tensor would need a device read
+                return a._hvd_host
+            return a
+
+        self._tp.send(("run", self._id, name,
+                       tuple(encode(a) for a in args)))
+
+    def _apply(self, name: str, args: tuple) -> None:
+        """Follower: run one of the leader's program calls on this shard."""
+        args = tuple(getattr(self, a.name) if isinstance(a, _Ref)
+                     else self._up(a) if isinstance(a, np.ndarray) else a
+                     for a in args)
+        out = getattr(self, "_" + name)(*args)
+        if name in _LOGITS_OUT:
+            self.last_logits = out[_LOGITS_OUT[name]]
+
+    @property
+    def is_leader(self) -> bool:
+        """True on the rank that serves: every engine but a
+        tensor-parallel follower."""
+        return self._tp is None or self._tp.leader
+
+    def follow(self) -> None:
+        """A tensor-parallel follower's serving loop: run the leader's
+        program calls on this rank's shard (and build and drop the
+        engines it clones and closes) until the leader has closed every
+        engine this rank holds.  Blocks."""
+        if self.is_leader:
+            raise RuntimeError("follow() is a tensor-parallel follower's "
+                               "loop; the leader serves")
+        self._tp.follow()
+
+    def close(self) -> None:
+        """Release the followers' shards of this engine (a follower's
+        :meth:`follow` returns once it holds no live engine); further
+        program calls raise.  Idempotent; a no-op at ``tp_size=1``."""
+        if self._tp is None or not self._tp.leader or self._closed:
+            return
+        with self._tp.lock:
+            self._tp.send(("close", self._id))
+            self._tp.engines.pop(self._id, None)
+            self._closed = True
 
     # -- introspection -----------------------------------------------------
 
@@ -528,20 +817,26 @@ class ServeEngine:
         active = self._up(np.zeros((self.n_slots,), np.int64))
         toks = self._up(np.zeros((1, self.chunk), np.int64))
         row = self._up(self._trash_row)
+        # a tensor-parallel leader counts its own shard of each program
+        # (fake tensors cross no wire) and records it tp_size times
         args = (self.params, self.pcache, self.last_logits)
-        dev.capture("tick", self._tick.fn, *args, active)
-        dev.capture("chunk", self._chunk.fn, *args, toks, 0, self.chunk, 0)
-        dev.capture("set_row", self._set_row.fn, self.pcache, 0, row, 0)
+        n = self.tp_size
+        dev.capture("tick", self._tick.fn, *args, active, shards=n)
+        dev.capture("chunk", self._chunk.fn, *args, toks, 0, self.chunk, 0,
+                    shards=n)
+        dev.capture("set_row", self._set_row.fn, self.pcache, 0, row, 0,
+                    shards=n)
         if self._spec_tick is not None:
             drafts = self._up(np.full((self.n_slots, self.draft_k), -1,
                                       np.int64))
             dev.capture("spec_tick", self._spec_tick.fn, *args, drafts,
-                        active)
+                        active, shards=n)
+        # this card's bytes: the rank's shard of the weights and the pool
         param_bytes = sum(x.numel() * x.element_size() for x in
                           pytree.tree_leaves(self.params))
         dev.set_model_bytes(
             param_bytes=param_bytes,
-            kv_total_bytes=self._block_bytes * self.pcache.k.shape[1])
+            kv_total_bytes=self._shard_block_bytes * self.pcache.k.shape[1])
 
     def free_block_count(self) -> int:
         return len(self._free_blocks)
@@ -741,11 +1036,16 @@ class ServeEngine:
     def _up(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device: from pinned memory without
         a wait on the card (the caching host allocator keeps the pinned
-        block until the copy has run), as is on the CPU."""
-        t = torch.from_numpy(np.ascontiguousarray(arr, np.int64))
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        block until the copy has run), as is on the CPU.  A
+        tensor-parallel leader keeps the host array on the tensor, for
+        the command that sends the call to the followers."""
+        host = np.ascontiguousarray(arr, np.int64)
+        t = torch.from_numpy(host)
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        if self._tp is not None:
+            t._hvd_host = host
+        return t
 
     def _write_row(self, slot: int, row: np.ndarray, length: int) -> None:
         self._set_row(self.pcache, slot, self._up(row), length)
@@ -761,10 +1061,16 @@ class ServeEngine:
         return -(-(len(req.prompt) + req.max_new_tokens)
                  // self.block_size)
 
+    def _require_leader(self) -> None:
+        if not self.is_leader:
+            raise RuntimeError("a tensor-parallel follower serves through "
+                               "follow(); submit to the leader (tp rank 0)")
+
     def submit(self, req: Request) -> int:
         """Queue a request; returns its id (key into ``results``).
         Validation happens here so a rejected request never holds a
         queue position."""
+        self._require_leader()
         L = len(req.prompt)
         if L < 1 or req.max_new_tokens < 1:
             # malformed client data: a terminal REJECTED, not an exception
@@ -1300,6 +1606,7 @@ class ServeEngine:
         slot, then one decode tick over the pool.  Returns
         ``{request_id: RequestResult}`` for every request that reached a
         terminal state during the step."""
+        self._require_leader()
         self._finished = {}
         progress = 0
         # mark-based phase profiling: each boundary charges the time
@@ -1953,9 +2260,6 @@ def measure_spec_throughput(
     asserting them equal, for a caller that holds them to a tolerance: on the card, bf16 products
     over the verify tick's ``draft_k + 1`` rows a slot need not round as
     the plain tick's one row does, so a near-tie can flip a token.
-
-    ``measure_tp_throughput``, the reference's tensor-parallel sweep,
-    waits for tensor-parallel serving (ROADMAP item 12b).
     """
     if not requests:
         raise ValueError("empty workload")
@@ -2008,4 +2312,107 @@ def measure_spec_throughput(
     if keep_tokens:
         result["serve_spec_tokens"] = tokens[True]
         result["serve_spec_plain_tokens"] = tokens[False]
+    return result
+
+
+def measure_tp_throughput(
+    params: dict, cfg: llama.LlamaConfig, requests: list[Request], *,
+    n_slots: int, max_len: int, chunk: int,
+    block_size: int | None = None, n_blocks: int | None = None,
+    tp_sizes: tuple[int, ...] = (1, 2, 4),
+    prefix_cache: bool = False,
+    spec: bool | None = None,
+    keep_tokens: bool = False,
+) -> dict | None:
+    """Tensor-parallel throughput sweep on one workload (the
+    ``serve_tp_*`` bench metrics).
+
+    One engine per ``tp_size``, each warmed by a full untimed pass and
+    timed on a second pass over the same queue.  Outputs are asserted
+    token-identical across every tp size (the sharded-parity guarantee),
+    so the ratios price the mesh's mechanics.  Returns per-tp
+    ``serve_tp{N}_tokens_per_sec`` and ``serve_tp{N}_scaling_eff`` —
+    tokens/s relative to the smallest tp run, divided by the tp ratio
+    (1.0 = linear) — plus ``serve_tp_sizes`` actually run and workload
+    shape fields.  A tp whose size exceeds the world's ranks (or does not
+    divide the head / ffn / vocab axes) is skipped and listed under
+    ``serve_tp_skipped``.
+
+    The port runs one process per GPU: every rank of the world calls this
+    with the same arguments (``params`` full, or each rank's own
+    :func:`~horovod_tpu_torch.models.llama.shard_params` shard for every
+    tp > 1 it takes part in).  Rank 0 leads each engine and returns the
+    result; ranks 1..tp-1 follow each tp > 1 engine and return None.
+    ``keep_tokens=True`` adds each tp's tokens (``serve_tp{N}_tokens``)
+    instead of asserting them equal, for a caller that holds them to a
+    tolerance (bf16 on the card: the sharded products round apart from
+    the whole ones, so a near-tie can flip a token).
+    """
+    if not requests:
+        raise ValueError("empty workload")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    me = dist.get_rank() if dist.is_initialized() else 0
+    kw = dict(n_slots=n_slots, max_len=max_len, chunk=chunk,
+              block_size=block_size, n_blocks=n_blocks,
+              prefix_cache=prefix_cache, spec=spec,
+              metrics=metrics_mod.NULL)
+    timings: dict[int, float] = {}
+    outputs: dict[int, list[RequestResult]] = {}
+    skipped: list[int] = []
+    ran: list[int] = []
+    n_tokens = 0
+    for tp in tp_sizes:
+        if tp > world or any(
+                d % tp for d in (cfg.n_heads, cfg.n_kv_heads, cfg.dim,
+                                 cfg.ffn_dim, cfg.vocab_size)):
+            skipped.append(tp)
+            continue
+        ran.append(tp)
+        if tp > 1:
+            tensor_parallel_mesh(tp)     # collective: every rank makes it
+        if me >= tp:                     # served by ranks 0..tp-1
+            continue
+        eng = ServeEngine(params, cfg, tp_size=tp, **kw)
+        if not eng.is_leader:
+            eng.follow()
+            continue
+        warm = eng.run(requests)
+        assert all(r.ok for r in warm), [r.status for r in warm]
+        n_tokens = sum(len(t) for t in warm)
+        _wait(eng.device)
+        t0 = time.perf_counter()
+        out = eng.run(requests)
+        _wait(eng.device)
+        timings[tp] = time.perf_counter() - t0
+        outputs[tp] = out
+        eng.close()
+    ran.sort()
+    if not ran:
+        raise ValueError(
+            f"no tp size in {tp_sizes} fits {world} ranks and the "
+            f"model's sharded axes")
+    if me != 0:
+        return None
+    base = ran[0]
+    tokens = {tp: [[int(t) for t in r] for r in outputs[tp]] for tp in ran}
+    if not keep_tokens:
+        for tp in ran[1:]:
+            assert tokens[tp] == tokens[base], \
+                f"tensor-parallel parity broken at tp={tp}"
+    result: dict[str, Any] = {
+        "serve_tp_sizes": ran,
+        "serve_tp_skipped": skipped,
+        "tokens": n_tokens,
+        "n_requests": len(requests),
+        "n_slots": n_slots,
+        "max_len": max_len,
+        "chunk": chunk,
+    }
+    for tp in ran:
+        tps = n_tokens / timings[tp]
+        result[f"serve_tp{tp}_tokens_per_sec"] = tps
+        result[f"serve_tp{tp}_scaling_eff"] = (
+            tps / (n_tokens / timings[base])) / (tp / base)
+        if keep_tokens:
+            result[f"serve_tp{tp}_tokens"] = tokens[tp]
     return result

@@ -50,7 +50,9 @@ def clone_engine(eng: Any) -> Any:
     with ``eng``'s exact configuration: same params/config/geometry/
     policy/faults/metrics and measurement planes, empty state.  The clone holds ``eng.params``
     itself, the same tensors on the card, so it adds one KV pool and no
-    second copy of the weights.  Greedy determinism makes the clone
+    second copy of the weights.  A tensor-parallel leader's clone is
+    built on its mesh, and the followers build theirs from their own
+    shards (the construct command).  Greedy determinism makes the clone
     token-identical to the original for any request, which is what lets
     a respawned replica transparently serve replays."""
     from horovod_tpu_torch.serving_scheduler import ServeEngine
@@ -63,6 +65,7 @@ def clone_engine(eng: Any) -> Any:
         # included), so the clone's KV geometry matches bit-for-bit.
         n_blocks=int(eng.pcache.k.shape[1]),
         tp_size=eng.tp_size,
+        mesh=eng.mesh,
         timeline=eng.timeline,
         preempt_after=eng.preempt_after,
         max_retries=eng.max_retries,

@@ -140,7 +140,7 @@ def test_measure_spec_throughput_parity_and_counts(world):
 
 def test_measure_functions_refuse_an_empty_workload(world):
     for fn in (tsched.measure_throughput, tsched.measure_prefix_throughput,
-               tsched.measure_spec_throughput):
+               tsched.measure_spec_throughput,
+               tsched.measure_tp_throughput):
         with pytest.raises(ValueError, match="empty workload"):
             fn(world.tp, world.tcfg, [], n_slots=2, max_len=16, chunk=4)
-    assert not hasattr(tsched, "measure_tp_throughput")

@@ -78,13 +78,18 @@ def test_port_modules_import_without_jax():
             "horovod_tpu_torch.tools.chaos_run",
             "horovod_tpu_torch.tools.simfleet_run",
             "horovod_tpu_torch.tools.perf_gate",
+            "horovod_tpu_torch.parallel.mesh",
+            "horovod_tpu_torch.keras", "horovod_tpu_torch.keras.callbacks",
+            "horovod_tpu_torch.keras_elastic",
             } <= set(mods)
-    assert len(mods) >= 74
+    assert len(mods) >= 78
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "assert not bad, bad\n"
+            # the Keras frontend imports keras at its first use only
+            "assert 'keras' not in sys.modules, 'keras imported'\n"
             "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

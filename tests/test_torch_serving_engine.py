@@ -182,7 +182,11 @@ def test_submit_validation_and_seams(world):
         on.monitor.stop()
     with pytest.raises(ValueError, match="monitor must be"):
         ServeEngine(p, cfg, n_slots=1, max_len=16, chunk=4, monitor=True)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    # tp > 1: the reference's divisibility check, then the mesh's rank
+    # count (a process with no world is one rank)
+    with pytest.raises(ValueError, match="does not divide cfg.n_heads=4"):
+        ServeEngine(p, cfg, n_slots=1, max_len=16, chunk=4, tp_size=3)
+    with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
         ServeEngine(p, cfg, n_slots=1, max_len=16, chunk=4, tp_size=2)
 
 
