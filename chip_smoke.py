@@ -35,6 +35,18 @@ Phases, one JSON line each; any failure exits non-zero before the result:
    seed), greedy ``generate`` over four ragged prompts; the flash kernel
    must launch once per layer of the prefill, and the prefill's logits
    must agree with ``attn_impl="dense"``.
+   ``examples`` (on the same weights): the example twins a user runs
+   first.  ``llama_generate`` (``horovod_tpu_torch/examples/``) with the
+   JAX script's defaults (batch 2, prompt 8, 32 new tokens), greedy: one
+   D = 128 forward launch per layer a prefill, the prefill's first kernel
+   call held against its plain version on the same tensors (L = 8: the
+   tail tile alone) and timed, decode tokens/s, tokens in the vocabulary
+   (the twin calls ``llama.generate``; its tokens against the dense
+   route's are ``serve generate``'s check); sampled (``--top-k 40 --top-p
+   0.9``, temperature 0.8): every token among ``torch.topk``'s 40 of the
+   logits it was drawn from.  Every number beside the card's name and
+   power limit.  (The twins that train, ``examples train``, run after
+   ``fit mnist``.)
 6. ``serve batcher``: a 512-token shared prefix (``precompute_prefix``,
    through the kernel) and a ``ContinuousBatcher`` answering eight
    requests; first tokens are held against solo ``generate``.
@@ -231,7 +243,13 @@ Phases, one JSON line each; any failure exits non-zero before the result:
     ``latest_checkpoint`` finds the last, ``restore_checkpoint`` into fresh
     objects equals the trained state bit for bit, and ``load_model``
     returns a ``DistributedOptimizer`` around the optimizer it was given,
-    which holds the trained momentum bit for bit.
+    which holds the trained momentum bit for bit.  ``examples train``
+    (after it): the twins ``pytorch_imagenet_resnet50 --smoke
+    --fp16-allreduce`` and ``word2vec --sparse`` (20 steps), each in a
+    world of one it starts and shuts down (NCCL).  ResNet-50 runs only:
+    two epochs and their checkpoints, finite metrics.  word2vec trains
+    from seeded numpy tables on the card and again on the CPU (gloo): the
+    card's losses within ``W2V_CPU_RTOL`` of the CPU's.
 15. ``serve tp`` (after ``serve chaos``, with the serving weights freed):
     tensor-parallel serving of Llama-3-8B at full width and depth, bf16, in
     a world of two processes on the one card over gloo (NCCL refuses two
@@ -1023,6 +1041,209 @@ def phase_generate(cfg, params, seed: int) -> dict:
     if not out["ok"]:
         raise PhaseError("serve generate failed its checks")
     return {"launches": launches}
+
+
+# The example twins' runs in ``examples``: llama_generate's JAX-script
+# defaults, and the sampled run's filter.
+EXAMPLE_GEN = {"batch": 2, "prompt_len": 8, "max_new_tokens": 32}
+EXAMPLE_SAMPLE = {"temperature": 0.8, "top_k": 40, "top_p": 0.9}
+EXAMPLE_W2V_STEPS = 20
+# word2vec's losses on the card against the CPU's from the same tables and
+# batches: f32 both, apart only in summation order (the 128-wide dot
+# products, the loss's mean) and in any near-tie at the sparse top-k's cut.
+W2V_CPU_RTOL = 1e-4
+
+
+def _captured_check(call: dict) -> dict:
+    """The captured forward call against the plain version on the same
+    tensors, at the kernel's tiles; then timed (``_time_forward``)."""
+    import torch
+
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    q, k, v, kw = call["q"], call["k"], call["v"], call["kw"]
+    tname = {torch.bfloat16: "bf16", torch.float16: "f16",
+             torch.float32: "f32"}[q.dtype]
+    blk = 64 if q.dtype == torch.float32 else 128
+    o_ref, lse_ref = fa._flash_forward_reference(q, k, v, block_q=blk,
+                                                 block_k=blk, **kw)
+    diff = (call["o"].float() - o_ref.float()).abs()
+    atol, rtol = O_TOL[tname]
+    excess = float((diff - rtol * o_ref.float().abs()).max())
+    lse_err = float((call["lse"] - lse_ref).abs().max())
+    bh, l, d = q.shape
+    h, kvh = kw["n_heads"], kw["n_kv_heads"]
+    out = {"shape": [bh // h, l, h, kvh, d], "dtype": tname,
+           "causal": kw["causal"], "entry": fa._FWD_ENTRY[q.dtype, d],
+           "o_max_abs_err": float(diff.max()), "o_tol": f"{atol} + {rtol}*|o|",
+           "o_excess_over_tol": excess, "lse_max_abs_err": lse_err,
+           "ok": excess <= atol and lse_err <= LSE_TOL}
+    if out["ok"]:
+        out["times"] = _time_forward(q, k, v, bh // h, l, kw["causal"], blk,
+                                     tname, heads=(h, kvh, d))
+    return out
+
+
+def phase_examples(cfg, params, card: str) -> dict:
+    """The ``llama_generate`` twin on the card (see the module's
+    docstring)."""
+    import torch
+
+    from horovod_tpu_torch.examples import llama_generate
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card, "n_layers": cfg.n_layers, **EXAMPLE_GEN}
+
+    # llama_generate, greedy: two generate calls (warm-up, timed), one
+    # prefill each; the first kernel call captured.
+    captured: list = []
+    real = fa._flash_forward_cuda
+
+    def spy(q, k, v, **kw):
+        o, lse = real(q, k, v, **kw)
+        if not captured:
+            captured.append({"q": q.clone(), "k": k.clone(), "v": v.clone(),
+                             "kw": kw, "o": o.clone(), "lse": lse.clone()})
+        return o, lse
+
+    _flash_zero()
+    fa._flash_forward_cuda = spy
+    try:
+        greedy = llama_generate.run(params, cfg, verbose=False,
+                                    **EXAMPLE_GEN)
+    finally:
+        fa._flash_forward_cuda = real
+    launches = fa.fwd_launches_by_dim[128]
+    out["greedy"] = {"seconds": greedy["seconds"],
+                     "decode_tokens_per_s": greedy["tokens_per_s"],
+                     "flash_fwd_d128_launches": launches,
+                     "prefills": 2,
+                     "launches_per_prefill": launches / 2}
+    out["greedy"]["in_vocab"] = bool(
+        ((greedy["tokens"] >= 0) & (greedy["tokens"] < cfg.vocab_size))
+        .all())
+    out["kernel_call"] = _captured_check(captured[0]) if captured else {
+        "ok": False}
+
+    # llama_generate, sampled: every draw checked against its logits.
+    draws: list = []
+    real_sample = llama.sample_logits
+
+    def record(logits, generator, **kw):
+        tok = real_sample(logits, generator, **kw)
+        draws.append((logits, tok))
+        return tok
+
+    _flash_zero()
+    llama.sample_logits = record
+    try:
+        sampled = llama_generate.run(params, cfg, verbose=False,
+                                     **EXAMPLE_GEN, **EXAMPLE_SAMPLE)
+    finally:
+        llama.sample_logits = real_sample
+    timed = draws[len(draws) // 2:]
+    in_topk = 0
+    for logits, tok in timed:
+        top = torch.topk(logits, EXAMPLE_SAMPLE["top_k"], dim=-1).indices
+        in_topk += int((top == tok[:, None]).any(-1).sum())
+    n_drawn = sum(int(t.numel()) for _, t in timed)
+    out["sampled"] = {**EXAMPLE_SAMPLE, "seconds": sampled["seconds"],
+                      "decode_tokens_per_s": sampled["tokens_per_s"],
+                      "tokens_checked": n_drawn, "in_top_k": in_topk,
+                      "flash_fwd_d128_launches": fa.fwd_launches_by_dim[128],
+                      "steps": len(timed)}
+    del draws, timed, captured
+
+    out["launches"] = (out["greedy"]["flash_fwd_d128_launches"]
+                       + out["sampled"]["flash_fwd_d128_launches"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    g, smp = out["greedy"], out["sampled"]
+    checks = {
+        "launches_one_per_layer_a_prefill": (
+            g["flash_fwd_d128_launches"] == 2 * cfg.n_layers
+            and smp["flash_fwd_d128_launches"] == 2 * cfg.n_layers),
+        "tokens_in_vocab": g["in_vocab"],
+        "kernel_call_vs_plain": out["kernel_call"]["ok"],
+        "sampled_in_top_k": (n_drawn == EXAMPLE_GEN["batch"]
+                             * EXAMPLE_GEN["max_new_tokens"]
+                             and in_topk == n_drawn),
+    }
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    emit("examples", **out)
+    if not out["ok"]:
+        raise PhaseError("examples failed its checks: " + ", ".join(
+            k for k, v in checks.items() if not v))
+    return out
+
+
+def phase_examples_train(card: str, seed: int) -> dict:
+    """The ResNet-50 twin (``--smoke --fp16-allreduce``) and word2vec
+    (``--sparse``), each a world of one on NCCL that it starts and shuts
+    down: after the train phases, so that every serving phase runs, as
+    before, in a process that has not yet started NCCL.  ResNet-50 runs
+    only; word2vec runs again on the CPU from the same tables."""
+    import tempfile
+
+    import numpy as np
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.examples import pytorch_imagenet_resnet50
+    from horovod_tpu_torch.examples import word2vec
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="hvd-examples-") as d:
+        t0 = time.perf_counter()
+        hist = pytorch_imagenet_resnet50.main(
+            ["--smoke", "--fp16-allreduce", "--checkpoint-dir", d])
+        out["resnet50"] = {
+            "seconds": time.perf_counter() - t0, "history": hist,
+            "checkpoints": sorted(os.listdir(d)),
+            "finite": all(np.isfinite(list(r.values())).all()
+                          for r in hist)}
+    # The tables from numpy (the twin's own draw takes the device's
+    # generator, which differs between the card and the CPU).
+    argv = ["--steps", str(EXAMPLE_W2V_STEPS), "--sparse"]
+    dims = word2vec.parse(argv)
+    rng = np.random.default_rng(seed)
+    tables = (rng.standard_normal((dims.vocab, dims.dim), np.float32)
+              * np.float32(0.05), np.zeros((dims.vocab, dims.dim),
+                                           np.float32))
+    runs = {}
+    for where, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        t0 = time.perf_counter()
+        try:
+            runs[where] = word2vec.run(word2vec.parse(argv + extra), tables)
+        finally:
+            basics.shutdown()
+        runs[where + "_s"] = time.perf_counter() - t0
+    losses, cpu = np.asarray(runs["card"]), np.asarray(runs["cpu"])
+    out["word2vec"] = {"seconds": runs["card_s"], "cpu_seconds": runs["cpu_s"],
+                       "steps": len(losses), "first_loss": losses[0],
+                       "last_loss": losses[-1],
+                       "max_rel_diff_vs_cpu": float(
+                           np.max(np.abs(losses - cpu) / np.abs(cpu))),
+                       "rtol": W2V_CPU_RTOL}
+    out["phase_s"] = time.perf_counter() - t_phase
+    checks = {
+        "resnet50_two_epochs_finite": (
+            out["resnet50"]["finite"] and len(hist) == 2
+            and out["resnet50"]["checkpoints"] == ["checkpoint-1.pt",
+                                                   "checkpoint-2.pt"]),
+        "word2vec_card_equals_cpu": (
+            len(losses) == len(cpu) == EXAMPLE_W2V_STEPS
+            and out["word2vec"]["max_rel_diff_vs_cpu"] <= W2V_CPU_RTOL),
+    }
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    emit("examples train", **out)
+    if not out["ok"]:
+        raise PhaseError("examples train failed its checks: " + ", ".join(
+            k for k, v in checks.items() if not v))
+    return out
 
 
 def phase_batcher(cfg, params, seed: int) -> dict:
@@ -5017,6 +5238,8 @@ def main(argv=None) -> int:
             emit("depth cut", path="serve", n_layers=args.n_layers, of=32)
         cfg, params = _model(args.n_layers, args.seed)
         gen = phase_generate(cfg, params, args.seed)
+        phase = "examples"
+        examples = phase_examples(cfg, params, info["nvidia_smi"])
         phase = "serve batcher"
         bat = phase_batcher(cfg, params, args.seed)
         phase = "serve speculative"
@@ -5073,6 +5296,8 @@ def main(argv=None) -> int:
         phase_train_compressed(args.seed)
         phase = "fit mnist"
         phase_fit_mnist(args.seed)
+        phase = "examples train"
+        phase_examples_train(info["nvidia_smi"], args.seed)
         phase = "train keras"
         phase_keras(info["keras"])
     except Exception as e:  # every failure ends the run without a result
@@ -5087,7 +5312,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": _kernel_rows(build, kern, kern_bwd, gen, bat,
                                               spec, train, kern64, vit,
                                               eager, router, elastic,
-                                              thr, (seqpar, sharded), tp)}),
+                                              thr, (seqpar, sharded), tp,
+                                              examples)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
@@ -5107,9 +5333,11 @@ def _ptx(build, kernel: str) -> dict:
 
 
 def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
-                 vit, eager, router, elastic, thr, sharded, tp) -> list[dict]:
+                 vit, eager, router, elastic, thr, sharded, tp,
+                 examples) -> list[dict]:
     """One row per kernel and head dim: its launches on the main paths
-    (D = 128: serving's generate, batcher and the router's fleet,
+    (D = 128: serving's generate, the ``llama_generate`` twin's prefills,
+    batcher and the router's fleet,
     ``measure_throughput``'s static baseline, ``serve tp``'s oracle, the
     Llama train steps and the sharded phases' steps (sequence-parallel,
     replicated, ZeRO, FSDP); D =
@@ -5134,7 +5362,8 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
         "name": "flash_fwd", "route": "cuda", "design": "cuda wgmma+tma",
         "source": "horovod_tpu_torch/csrc/flash_fwd.cu",
         "replaces": f"{src}:62",
-        "launches": (gen["launches"] + bat["launches"]
+        "launches": (gen["launches"] + examples["launches"]
+                     + bat["launches"]
                      + spec["launches"][128]
                      + router["launches"]["flash_fwd_d128"]
                      + thr["launches"]["flash_fwd_d128"]
@@ -5154,6 +5383,10 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
         **_ptx(build, "flash_fwd_wgmma_kernel"),
         "smem_bytes": fa.smem_bytes("flash_fwd", "hvd_flash_fwd"),
         "train_shape": {k: trn[k] for k in times},
+        "example_prefill_shape": {
+            "shape": examples["kernel_call"]["shape"],
+            "o_max_abs_err": examples["kernel_call"]["o_max_abs_err"],
+            **{k: examples["kernel_call"]["times"][k] for k in times}},
     }]
     for name, key, line, grads, kernel, entry in (
             ("flash_bwd_dq", "dq", 188, ("dq",), BWD_KERNELS[0],

@@ -46,9 +46,11 @@ Llama's ``ring``, ``ulysses`` and ``ulysses_flash`` engines over
 
 from horovod_tpu_torch._device import resolve_device
 from horovod_tpu_torch.basics import (HorovodInternalError,
-                                      NotInitializedError, init,
-                                      is_initialized, local_rank, local_size,
-                                      rank, shutdown, size)
+                                      NotInitializedError, cross_rank,
+                                      cross_size, init, is_initialized,
+                                      local_rank, local_size,
+                                      mpi_threads_supported, rank, shutdown,
+                                      size)
 from horovod_tpu_torch.ops.collective_ops import (Adasum, Average, Max, Min,
                                                   ProcessSet, Product, Sum,
                                                   allgather, allreduce,
@@ -84,11 +86,13 @@ from horovod_tpu_torch.optim.fsdp import (FsdpStepResult,
                                           fsdp_partition_specs,
                                           make_fsdp_train_step, shard_params)
 from horovod_tpu_torch.training import fit, make_eval_step
+from horovod_tpu_torch.data import (ShardedLoader, prefetch_to_device,
+                                    shard_indices)
 from horovod_tpu_torch import elastic
 
 __all__ = [
     "resolve_device", "HorovodInternalError", "NotInitializedError", "init",
-    "is_initialized",
+    "is_initialized", "cross_rank", "cross_size", "mpi_threads_supported",
     "local_rank", "local_size", "rank", "shutdown", "size",
     "Adasum", "Average", "Max", "Min", "ProcessSet", "Product", "Sum",
     "allgather", "allreduce", "alltoall", "barrier", "broadcast",
@@ -109,5 +113,5 @@ __all__ = [
     "save_checkpoint", "wait_for_checkpoints", "ZeroStepResult",
     "make_zero_train_step", "FsdpStepResult", "fsdp_partition_specs",
     "make_fsdp_train_step", "shard_params", "fit", "make_eval_step",
-    "elastic",
+    "ShardedLoader", "prefetch_to_device", "shard_indices", "elastic",
 ]

@@ -1,7 +1,8 @@
 """Process model: ``init``, ``shutdown``, ``rank``, ``size`` on ``torch.distributed``.
 
 Port of ``horovod_tpu/basics.py`` (``init``, ``shutdown``, ``is_initialized``,
-``size``, ``local_size``, ``rank``, ``local_rank``, ``NotInitializedError``).
+``size``, ``local_size``, ``rank``, ``local_rank``, ``cross_size``,
+``cross_rank``, ``mpi_threads_supported``, ``NotInitializedError``).
 The JAX package drives every chip of a host from one controller; the port
 runs one process per GPU, as Horovod itself does, over one
 ``torch.distributed`` process group: NCCL for CUDA, gloo for the CPU.
@@ -223,6 +224,46 @@ def local_size() -> int:
 def local_rank() -> int:
     """This process's index among the host's processes (its GPU)."""
     return _require_init().local_rank
+
+
+def _cross(rank: int, size: int, local: int) -> tuple[int, int]:
+    """(cross_rank, cross_size) of ``rank`` in a world of ``size`` ranks
+    numbered into nodes of ``local``: the launcher's numbering, rank r on
+    node ``r // local`` at local rank ``r % local``.  The cross group of a
+    rank is Horovod's cross communicator, the ranks that share its local
+    rank (reference operations.cc:1558-1590, ``MPI_Comm_split`` by local
+    rank), one on each node."""
+    lr = rank % local
+    return rank // local, (size - lr + local - 1) // local
+
+
+def cross_size() -> int:
+    """The number of nodes: ``size() // local_size()`` (the JAX package's
+    ``jax.process_count()``, one process a host there).
+
+    Where ``local_size()`` does not divide ``size()`` the last node is
+    partial, and this is Horovod's cross-communicator size, the number of
+    ranks that share this rank's local rank: in a world of 3 with
+    ``local_size`` 2, ranks 0 and 2 answer 2 and rank 1 answers 1."""
+    st = _require_init()
+    return _cross(rank(), size(), st.local_size)[1]
+
+
+def cross_rank() -> int:
+    """This rank's node, ``rank() // local_size()``: its index in its cross
+    group (the numbering ``HOROVOD_HIERARCHICAL_ALLREDUCE`` builds its
+    groups by, ``ops/eager.py`` ``_make_hierarchy``)."""
+    st = _require_init()
+    return _cross(rank(), size(), st.local_size)[0]
+
+
+def mpi_threads_supported() -> bool:
+    """``True``: Horovod's query for an MPI built with
+    ``MPI_THREAD_MULTIPLE`` (reference operations.cc:2089-2095).  There is
+    no MPI here, and the process group may be called from any thread (the
+    eager engine's cycle thread does)."""
+    _require_init()
+    return True
 
 
 def device() -> torch.device:

@@ -61,7 +61,9 @@ One known difference from the reference: the port's
 engine's device plane, sampler and alert rules, where the reference's
 does not, so a respawned replica reports to the fleet's ``/device`` view
 as before.  The campaigns build their replicas with ``sampler=False``,
-so their reports do not differ by it.
+so their reports do not differ by it.  A second: the autoscale campaign's
+router has no sampler either (the reference's takes the env-driven one),
+so no alert rule can page on its forced drain, whatever the host's speed.
 """
 
 from __future__ import annotations
@@ -612,8 +614,12 @@ def run_autoscale_campaign(params: dict, cfg: Any, *,
         return workload[w * n_groups:(w + 1) * n_groups]
 
     try:
+        # No sampler, so no alert rules and no advisor: the campaign owns
+        # every decision.  An env-driven sampler (HVD_TORCH_SAMPLE_S, 1 s)
+        # would page ``replica_death`` on the forced drain whenever a run
+        # outlasts one cadence after it, a verdict of the host's speed.
         router = RouterServer(engines, policy="round_robin", registry=reg,
-                              faults=fr, journal=journal)
+                              faults=fr, journal=journal, sampler=False)
         sup = ReplicaSupervisor(router, backoff_s=backoff_s,
                                 warm_prefixes=4)
         asc = FleetAutoscaler(router, supervisor=sup, enabled=True,

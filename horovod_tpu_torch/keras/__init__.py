@@ -4,7 +4,8 @@ Keras 3's **torch** backend.
 Port of ``horovod_tpu/keras/__init__.py`` (the reference's
 horovod/keras/__init__.py:1-148 and horovod/_keras/__init__.py), with its
 surface: ``init``/``shutdown``/``size``/``local_size``/``rank``/
-``local_rank``, ``DistributedOptimizer``, ``broadcast_global_variables``,
+``local_rank``/``cross_size``/``cross_rank``/``mpi_threads_supported``,
+``DistributedOptimizer``, ``broadcast_global_variables``,
 value-level ``allreduce``/``allgather``/``broadcast``, ``load_model``
 (the optimizer re-wrapped at deserialization, its slot state kept), the
 four callbacks in :mod:`horovod_tpu_torch.keras.callbacks` and
@@ -48,7 +49,10 @@ size = _basics.size
 local_size = _basics.local_size
 rank = _basics.rank
 local_rank = _basics.local_rank
+cross_size = _basics.cross_size
+cross_rank = _basics.cross_rank
 is_initialized = _basics.is_initialized
+mpi_threads_supported = _basics.mpi_threads_supported
 
 
 def _keras():
@@ -329,7 +333,8 @@ from horovod_tpu_torch import keras_elastic as elastic  # noqa: E402,F401
 
 __all__ = [
     "init", "shutdown", "size", "local_size", "rank", "local_rank",
-    "is_initialized", "Compression", "DistributedOptimizer", "allreduce",
+    "cross_size", "cross_rank", "is_initialized", "mpi_threads_supported",
+    "Compression", "DistributedOptimizer", "allreduce",
     "allgather", "broadcast", "broadcast_variables",
     "broadcast_global_variables", "load_model", "callbacks", "elastic",
 ]

@@ -24,8 +24,10 @@ from __future__ import annotations
 import torch
 
 from horovod_tpu_torch.basics import (HorovodInternalError,  # noqa: F401
-                                      init, is_initialized, local_rank,
-                                      local_size, rank, shutdown, size)
+                                      cross_rank, cross_size, init,
+                                      is_initialized, local_rank, local_size,
+                                      mpi_threads_supported, rank, shutdown,
+                                      size)
 from horovod_tpu_torch.ops import eager as _eager
 from horovod_tpu_torch.ops.collective_ops import (Adasum, Average,  # noqa: F401
                                                   Max, Min, ProcessSet,

@@ -18,11 +18,30 @@ warm-up callbacks, by the JAX frontend's single-controller fit over 2 CPU
 devices (in this process, the JAX world cut to those 2) and by the port's
 two ranks, each on its half of every batch: weights within 1e-5 (f32),
 the per-epoch losses within 1e-5, the LR schedules equal.
+
+The Keras example twins are held to their JAX scripts.  Those run in a
+child process on two CPU devices (``KERAS_BACKEND=jax``) beside the world:
+``examples/keras_mnist.py`` (the JAX package's ``fit``, flax ``MnistMLP``,
+optax Adam, ``ShardedLoader``) and ``examples/keras3_mnist.py`` (keras on
+JAX, single-controller ``DataParallel``), each one's initial and final
+weights and history recorded (``keras_mnist``'s per-step losses too).
+The twins start from the same weights, computed here (the flax init from
+the script's key; keras's JAX-backend draw from the script's seed, both
+checked against the child's), and fit the same samples in the same order:
+the two ranks' halves of each batch make up the single controller's
+batch.  ``keras_imagenet_resnet50``'s model is
+keras's own ResNet-50 where the JAX script trains the flax one, so its
+losses are not comparable; its per-epoch LR is held to the JAX script's
+optax schedule (the JAX package's ``warmup_schedule`` joined to the
+staircase decay as the script joins them).
 """
 
 from __future__ import annotations
 
 import os
+import pickle
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -30,14 +49,100 @@ import pytest
 os.environ.setdefault("KERAS_BACKEND", "jax")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 import keras  # noqa: E402
 
 import horovod_tpu as jhvd  # noqa: E402
 import horovod_tpu.keras as jhvdk  # noqa: E402
 import torch_keras_worker as worker  # noqa: E402
+from horovod_tpu.data import synthetic_mnist  # noqa: E402
+from horovod_tpu.models.mnist import MnistMLP  # noqa: E402
 from torch_gloo_world import start_world  # noqa: E402
 
 ATOL = 1e-5
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# examples/keras_mnist.py and keras3_mnist.py on two CPU devices, their
+# initial and final weights and histories recorded; argv: repo root,
+# output pickle, keras3's checkpoint directory.
+_JAX_EXAMPLES = r"""
+import importlib.util, os, pickle, sys
+root, out, ck = sys.argv[1:4]
+sys.path.insert(0, root)
+import jax
+import keras
+import numpy as np
+import horovod_tpu as hvd
+res = {}
+import horovod_tpu.training as training
+steps, make_step = [], training.make_train_step
+def make(*a, **k):
+    step = make_step(*a, **k)
+    def run(*b, **kw):
+        r = step(*b, **kw)
+        steps.append(float(r.loss))
+        return r
+    return run
+training.make_train_step = make
+real_fit = hvd.fit
+def fit(params, *a, **k):
+    init = jax.device_get(params)           # the step donates params
+    p, opt, history = real_fit(params, *a, **k)
+    res["keras_mnist"] = {"init": init, "final": jax.device_get(p),
+                          "history": history, "step_losses": list(steps)}
+    return p, opt, history
+hvd.fit = fit
+real_keras_fit = keras.Model.fit
+def keras_fit(self, *a, **k):
+    init = [np.asarray(w) for w in self.get_weights()]
+    h = real_keras_fit(self, *a, **k)
+    res["keras3_mnist"] = {"init": init, "history": h.history,
+                           "final": [np.asarray(w) for w in self.get_weights()]}
+    return h
+keras.Model.fit = keras_fit
+for script, argv in (("keras_mnist", ["--epochs", "2"]),
+                     ("keras3_mnist", ["--epochs", "2", "--samples", "256",
+                                       "--ckpt-dir", ck])):
+    spec = importlib.util.spec_from_file_location(
+        script, os.path.join(root, "examples", script + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    sys.argv = [script + ".py", *argv]
+    mod.main()
+with open(out, "wb") as f:
+    pickle.dump(res, f)
+"""
+
+
+def _flax_dense_list(params: dict) -> list:
+    """A flax MLP's ``Dense_i`` kernels and biases in keras's order."""
+    return [np.asarray(params[f"Dense_{i}"][leaf])
+            for i in range(len(params)) for leaf in ("kernel", "bias")]
+
+
+def _example_weights() -> dict:
+    """The JAX scripts' initial weights: ``keras_mnist.py``'s flax init
+    (key 0) and ``keras3_mnist.py``'s keras draw (seed 42, JAX backend)."""
+    images, _ = synthetic_mnist(1)
+    flax = MnistMLP().init(jax.random.key(0), jnp.asarray(images))["params"]
+    keras.utils.set_random_seed(42)
+    model = keras.Sequential([keras.layers.Input((28 * 28,)),
+                              keras.layers.Dense(128, activation="relu"),
+                              keras.layers.Dense(10)])
+    return {"keras_mnist": _flax_dense_list(flax),
+            "keras3_mnist": [np.asarray(w) for w in model.get_weights()]}
+
+
+def _start_jax_examples(tmp) -> tuple:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(JAX_PLATFORMS="cpu", KERAS_BACKEND="jax", OMP_NUM_THREADS="1",
+               XLA_FLAGS="--xla_force_host_platform_device_count=2")
+    out = tmp / "jax_examples.pkl"
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _JAX_EXAMPLES, ROOT, str(out),
+         str(tmp / "keras3_ck")], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return proc, out
 
 
 def _jax_oracle() -> dict:
@@ -75,11 +180,24 @@ def _jax_oracle() -> dict:
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     assert keras.backend.backend() == "jax", keras.backend.backend()
-    join = start_world(worker.keras_world, 2,
-                       str(tmp_path_factory.mktemp("keras")),
-                       env={"KERAS_BACKEND": "torch"})
-    jx = _jax_oracle()
-    return join(timeout=240), jx
+    tmp = tmp_path_factory.mktemp("keras")
+    proc, out = _start_jax_examples(tmp)
+    try:
+        weights = _example_weights()
+        join = start_world(worker.keras_world, 2, str(tmp), weights,
+                           env={"KERAS_BACKEND": "torch"})
+        jx = _jax_oracle()
+        results = join(timeout=240)
+        log, _ = proc.communicate(timeout=240)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, log
+    with open(out, "rb") as f:
+        jx["examples"] = pickle.load(f)
+    jx["example_weights"] = weights
+    return results, jx
 
 
 def _case(world, name, rank=0):
@@ -289,3 +407,119 @@ def test_keras_elastic_example_resumes_past_the_end(world):
     assert out["commits"] == ["step_1.npz", "step_2.npz"]
     other = _case(world, "elastic_example_twin", 1)
     assert other["runs"][1]["last"] is None
+
+
+def test_keras_mnist_example_twin_on_two_ranks(world):
+    """``keras_mnist --epochs 2`` on the world of two: the broadcast and
+    metric-average callbacks keep the ranks' weights equal and their
+    averaged losses equal, and the loss falls."""
+    out, other = (_case(world, "keras_mnist_twin", r) for r in (0, 1))
+    assert all(np.isfinite(out["loss"])) and out["loss"][1] < out["loss"][0]
+    assert other["loss"] == pytest.approx(out["loss"], rel=1e-6)
+    assert all(np.array_equal(a, b)
+               for a, b in zip(out["weights"], other["weights"]))
+    assert "final loss:" in out["stdout"] and other["stdout"] == ""
+
+
+# Keras's Adam adds epsilon to √v before the bias correction, optax after
+# it: with epsilon 1e-8 on both, keras's acts as 1e-8 / √(1 − 0.999ᵗ), up
+# to 3.2e-7 at the first step, which moves the steps of weights whose
+# gradients are that small.  At the script's Adam(0.02) the loss spikes to
+# ~15 in the first steps, and the difference, 5e-4 of the loss at step 1,
+# grows to 1.4 % of epoch 1's mean loss (and to 13 % of the weights'
+# update, so the weights are not compared).
+KERAS_ADAM_RTOL = 3e-2
+
+
+def test_keras_mnist_example_twin_matches_the_jax_example(world):
+    """From the JAX script's flax init, on its ``ShardedLoader`` order: the
+    first step's loss (the mean of the two ranks' halves of the single
+    controller's batch) within 1e-5 of the JAX ``fit``'s, and the
+    per-epoch losses within ``KERAS_ADAM_RTOL``."""
+    results, jx = world
+    want = jx["examples"]["keras_mnist"]
+    assert all(np.array_equal(a, b) for a, b in zip(
+        _flax_dense_list(want["init"]),
+        jx["example_weights"]["keras_mnist"]))
+    out, other = (_case(world, "keras_mnist_twin", r) for r in (0, 1))
+    steps = (np.asarray(out["step_losses"])
+             + np.asarray(other["step_losses"])) / 2
+    assert len(steps) == len(want["step_losses"]) == 128
+    np.testing.assert_allclose(steps[0], want["step_losses"][0], rtol=1e-5)
+    np.testing.assert_allclose(out["loss"], [h["loss"] for h in
+                                             want["history"]],
+                               rtol=KERAS_ADAM_RTOL)
+
+
+def test_keras3_mnist_example_twin_saves_and_reloads(world):
+    """``keras3_mnist --smoke``: the warm-up reaches base_lr · size (0.1),
+    the loss falls, rank 0 saves ``model.keras`` and ``load_model``
+    re-wraps its optimizer."""
+    out, other = (_case(world, "keras3_mnist_twin", r) for r in (0, 1))
+    assert out["loss"][1] < out["loss"][0]
+    assert out["lr"][-1] == pytest.approx(0.1, rel=1e-5)
+    assert out["saved"] and out["reloaded_mixin"]
+    assert "reloaded optimizer: DistributedSGD" in out["stdout"]
+    assert other["path"] is None and other["loss"] == pytest.approx(
+        out["loss"], rel=1e-6)
+
+
+def test_keras3_mnist_example_twin_matches_the_jax_example(world):
+    """From the JAX script's draw (the child's pre-fit weights equal the
+    ones computed here): the per-epoch loss, accuracy and LR, and the final
+    weights, within 1e-5 of keras on JAX over two devices."""
+    results, jx = world
+    want = jx["examples"]["keras3_mnist"]
+    assert all(np.array_equal(a, b) for a, b in zip(
+        want["init"], jx["example_weights"]["keras3_mnist"]))
+    out = _case(world, "keras3_mnist_twin")
+    for key in ("loss", "accuracy", "lr"):
+        np.testing.assert_allclose(out[key], want["history"][key], rtol=0,
+                                   atol=ATOL, err_msg=key)
+    for got, w in zip(out["weights"], want["final"]):
+        np.testing.assert_allclose(got, w, rtol=0, atol=ATOL)
+
+
+def test_keras_imagenet_resnet50_example_twin_resumes(world):
+    """``keras_imagenet_resnet50 --smoke``: one epoch writes
+    ``checkpoint-1.keras`` on rank 0; a second run to two epochs takes its
+    epoch on both ranks and trains epoch 1 alone."""
+    out, other = (_case(world, "keras_imagenet_resnet50_twin", r)
+                  for r in (0, 1))
+    first, second = out["runs"]
+    assert first["resumed_from"] == 0 and second["resumed_from"] == 1
+    assert other["runs"][1]["resumed_from"] == 1
+    assert "resuming from epoch 1" in second["stdout"]
+    assert [ln.split(":")[0] for ln in second["stdout"].splitlines()
+            if ln.startswith("epoch")] == ["epoch 1"]
+    assert len(second["loss"]) == 1 and all(
+        np.isfinite(r["loss"]).all() for r in out["runs"])
+    assert out["commits"] == ["checkpoint-1.keras", "checkpoint-2.keras"]
+
+
+def test_keras_imagenet_resnet50_example_twin_lr_follows_the_jax_schedule(
+        world):
+    """Each epoch's LR (set at its last batch; one batch an epoch here:
+    8 samples, 4 a rank) against the JAX script's optax schedule: the
+    warm-up from ``base_lr`` towards ``base_lr · size`` over 5 epochs,
+    then the staircase, on both ranks and across the resume, where the
+    restored optimizer holds the warmed-up LR.  The reference's warm-up
+    callback counts a batch as done when it begins (``epoch +=
+    1 / steps_per_epoch``), so the twin's LR at step s is the schedule's
+    at s + 1."""
+    import optax
+
+    base, size, warmup, steps = 0.0125, 2, 5.0, 1
+    schedule = optax.join_schedules(
+        [jhvd.warmup_schedule(base, size=size, warmup_epochs=warmup,
+                              steps_per_epoch=steps),
+         optax.piecewise_constant_schedule(
+             base * size, {30 * steps: 0.1, 60 * steps: 0.1,
+                           80 * steps: 0.1})],
+        [int(warmup * steps)])
+    for rank in (0, 1):
+        first, second = _case(world, "keras_imagenet_resnet50_twin",
+                              rank)["runs"]
+        got = first["lr"] + second["lr"]
+        want = [float(schedule((e + 1) * steps)) for e in range(2)]
+        np.testing.assert_allclose(got, want, rtol=1e-6)

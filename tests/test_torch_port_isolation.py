@@ -19,6 +19,14 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "horovod_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+# The twins of examples/llama_generate.py, pytorch_imagenet_resnet50.py,
+# jax_word2vec.py, jax_mnist_eager.py, jax_mnist_estimator.py,
+# jax_elastic.py, scaling_benchmark.py, keras_mnist.py, keras3_mnist.py
+# and keras_imagenet_resnet50.py.
+EXAMPLE_TWINS = ("llama_generate", "pytorch_imagenet_resnet50", "word2vec",
+                 "mnist_eager", "mnist_estimator", "elastic",
+                 "scaling_benchmark", "keras_mnist", "keras3_mnist",
+                 "keras_imagenet_resnet50")
 
 
 def _modules() -> list[str]:
@@ -81,8 +89,9 @@ def test_port_modules_import_without_jax():
             "horovod_tpu_torch.parallel.mesh",
             "horovod_tpu_torch.keras", "horovod_tpu_torch.keras.callbacks",
             "horovod_tpu_torch.keras_elastic",
+            *(f"horovod_tpu_torch.examples.{m}" for m in EXAMPLE_TWINS),
             } <= set(mods)
-    assert len(mods) >= 78
+    assert len(mods) >= 88
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
@@ -111,6 +120,31 @@ def test_no_jax_imports_in_source(path):
         else:
             continue
         assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_basics_names_are_re_exported_without_jax():
+    """``cross_size``, ``cross_rank``, ``mpi_threads_supported`` from the
+    package, ``torch_frontend`` and ``keras`` (as the JAX package's
+    ``__init__``, ``torch`` and ``keras`` export them), and the data
+    helpers from the package, all the basics' own objects."""
+    code = ("import sys\n"
+            "import horovod_tpu_torch as h\n"
+            "import horovod_tpu_torch.keras as k\n"
+            "import horovod_tpu_torch.torch_frontend as t\n"
+            "from horovod_tpu_torch import basics, data\n"
+            "for n in ('cross_size', 'cross_rank', 'mpi_threads_supported'):\n"
+            "    for m in (h, k, t):\n"
+            "        assert getattr(m, n) is getattr(basics, n), (m, n)\n"
+            "    assert n in h.__all__ and n in k.__all__, n\n"
+            "for n in ('ShardedLoader', 'shard_indices', 'prefetch_to_device'):\n"
+            "    assert getattr(h, n) is getattr(data, n) and n in h.__all__\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+            "assert not bad and 'keras' not in sys.modules, bad\n"
+            "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 def test_forbidden_match_is_exact():

@@ -314,6 +314,27 @@ def test_health_report_renders_the_port_autoscale_timeline(world,
     assert health_report.main(["--events", log]) == 0
 
 
+def test_port_autoscale_campaign_pages_nothing_at_any_sampler_cadence(
+        world, tmp_path, monkeypatch):
+    """The campaign's router runs without a sampler, so no alert rule can
+    read the forced drain's ``router.replica_deaths``, however slowly the
+    host runs the campaign.  A sampler ticking at every poll (the slowest
+    host) is the case that paged ``replica_death`` when the router took
+    the env-driven sampler."""
+    from horovod_tpu_torch.chaos import run_autoscale_campaign
+
+    monkeypatch.setenv("HVD_TORCH_SAMPLE_S", "1e-6")
+    log = str(tmp_path / "events.jsonl")
+    rep = run_autoscale_campaign(world.tp, world.tcfg, n_replicas=2,
+                                 n_groups=2, waves=5, event_log=log,
+                                 journal=str(tmp_path / "wal.jsonl"))
+    assert rep["ok"] and rep["drain_forced"], rep["oracles"]
+    events = health_report.read_events(log)
+    assert not any(e.get("kind", "").startswith("alert.") for e in events)
+    assert health_report.timeline_key(
+        health_report.timeline_from_events(events)) == []
+
+
 def _burn_setup(event_log=None, time_scale=0.1):
     reg = MetricsRegistry(event_log=event_log)
     clk = Clock(0.0)

@@ -53,7 +53,8 @@ class _Refuse:
         return None
 
 
-def keras_world(rank: int, world: int, tmp: str) -> dict:
+def keras_world(rank: int, world: int, tmp: str,
+                example_weights: dict | None = None) -> dict:
     import sys
 
     import torch
@@ -512,6 +513,85 @@ def keras_world(rank: int, world: int, tmp: str) -> dict:
             with contextlib.redirect_stdout(buf):
                 last = keras_elastic.main(argv)
             runs.append({"stdout": buf.getvalue(), "last": last})
+        return {"runs": runs,
+                "commits": sorted(os.listdir(ck)) if rank == 0 else None}
+
+    def quiet(fn, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(argv)
+        return out, buf.getvalue()
+
+    weights = example_weights or {}
+
+    @case
+    def keras_mnist_twin():
+        # the example on both ranks from the JAX script's init, with its
+        # 4096 samples: keras_mnist --epochs 2 --device cpu
+        from horovod_tpu_torch.examples import keras_mnist
+
+        means = []
+
+        class Steps(keras.callbacks.Callback):
+            # keras logs this rank's running mean of its batches' losses
+            def on_epoch_begin(self, epoch, logs=None):
+                means.append([])
+
+            def on_train_batch_end(self, batch, logs=None):
+                means[-1].append(logs["loss"])
+
+        real_fit = keras.Model.fit
+
+        def fit(self, *a, callbacks=(), **k):
+            return real_fit(self, *a, callbacks=[*callbacks, Steps()], **k)
+
+        keras.Model.fit = fit
+        try:
+            out, stdout = quiet(
+                lambda argv: keras_mnist.main(argv, weights["keras_mnist"]),
+                ["--epochs", "2", "--device", "cpu"])
+        finally:
+            keras.Model.fit = real_fit
+        steps = []
+        for m in map(np.asarray, means):
+            total = m * np.arange(1, len(m) + 1)
+            steps += list(np.diff(total, prepend=0.0))
+        return {"stdout": stdout, "loss": out["history"]["loss"],
+                "step_losses": steps, "weights": out["weights"]}
+
+    @case
+    def keras3_mnist_twin():
+        # keras3_mnist --smoke from the JAX script's init
+        from horovod_tpu_torch.examples import keras3_mnist
+
+        d = os.path.join(tmp, "keras3")
+        out, stdout = quiet(
+            lambda argv: keras3_mnist.main(argv, weights["keras3_mnist"]),
+            ["--smoke", "--device", "cpu", "--ckpt-dir", d])
+        rel = out["reloaded"]
+        return {"stdout": stdout, "loss": out["history"]["loss"],
+                "accuracy": out["history"]["accuracy"],
+                "weights": out["weights"],
+                "lr": out["history"]["lr"], "path": out["path"],
+                "saved": os.path.exists(os.path.join(d, "model.keras")),
+                "reloaded_mixin": (None if rel is None else isinstance(
+                    rel.optimizer, hvdk._DistributedApplyMixin))}
+
+    @case
+    def keras_imagenet_resnet50_twin():
+        # one epoch, then a second run on the same directory that rank 0
+        # resumes from checkpoint-1.keras
+        from horovod_tpu_torch.examples import keras_imagenet_resnet50 as kr
+
+        ck = os.path.join(os.path.dirname(tmp), "resnet50_ck")
+        argv = ["--smoke", "--samples", "8", "--batch-per-chip", "4",
+                "--device", "cpu", "--ckpt-dir", ck]
+        runs = []
+        for epochs in ("1", "2"):
+            out, stdout = quiet(kr.main, ["--epochs", epochs, *argv])
+            runs.append({"stdout": stdout, "loss": out["history"]["loss"],
+                         "lr": out["history"]["lr"],
+                         "resumed_from": out["resumed_from"]})
         return {"runs": runs,
                 "commits": sorted(os.listdir(ck)) if rank == 0 else None}
 
