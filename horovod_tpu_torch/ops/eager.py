@@ -742,7 +742,8 @@ class EagerEngine:
                 tl.start(n, timeline_mod.DISPATCH)
         try:
             ps = group[0].process_set
-            with self._issue(group):
+            with timeline_mod.span("hvd.dispatch", timeline=False), \
+                    self._issue(group):
                 flat = torch.cat([p.tensor.reshape(-1) for p in group])
                 work, finish = self._reduce_bucket(
                     flat, group[0].op, group[0].compression, ps)
@@ -818,7 +819,8 @@ class EagerEngine:
         if tl:
             tl.start(p.name, p.kind.upper())
         try:
-            with self._issue([p]):
+            with timeline_mod.span("hvd.dispatch", timeline=False), \
+                    self._issue([p]):
                 work, finish = getattr(self, f"_start_{p.kind}")(p)
                 flight = _Flight(work, lambda: [finish()], self._stream)
             self.handles.mark_dispatched(p.handle, _Output(flight, 0))

@@ -4,7 +4,8 @@ Port of ``horovod_tpu/ops/fusion.py``.  :func:`plan_buckets` is the same
 pure function (its plans equal the JAX package's for the same sizes and
 keys).  :func:`fused_apply` flattens each bucket's tensors, concatenates
 them into one buffer, runs ONE collective on it and splits the result:
-Horovod's fusion buffer, here a ``torch.cat`` on the device.
+Horovod's fusion buffer, here a ``torch.cat`` on the device.  Each bucket
+is an ``hvd.bucket`` span (:func:`..timeline.span`).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from horovod_tpu_torch.timeline import span
 from horovod_tpu_torch.utils.env import DEFAULT_FUSION_THRESHOLD_BYTES
 
 
@@ -74,13 +76,15 @@ def fused_apply(
     scratch is alive at a time, and the inputs are returned."""
     out: list[torch.Tensor | None] = [None] * len(tensors)
     for bucket in plan_buckets(tensors, threshold_bytes):
-        flat = torch.cat([tensors[i].reshape(-1) for i in bucket])
-        reduced = collective(flat)
-        for i, piece in zip(bucket, reduced.split(
-                [tensors[i].numel() for i in bucket])):
-            piece = piece.view(tensors[i].shape)
-            if inplace:
-                tensors[i].copy_(piece)
-                piece = tensors[i]
-            out[i] = piece
+        with span("hvd.bucket", tensors=len(bucket),
+                  bytes=sum(_nbytes(tensors[i]) for i in bucket)):
+            flat = torch.cat([tensors[i].reshape(-1) for i in bucket])
+            reduced = collective(flat)
+            for i, piece in zip(bucket, reduced.split(
+                    [tensors[i].numel() for i in bucket])):
+                piece = piece.view(tensors[i].shape)
+                if inplace:
+                    tensors[i].copy_(piece)
+                    piece = tensors[i]
+                out[i] = piece
     return out  # type: ignore[return-value]

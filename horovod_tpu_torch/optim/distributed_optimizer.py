@@ -38,6 +38,7 @@ from horovod_tpu_torch.ops.compression import Compression, TopKCompressor
 from horovod_tpu_torch.ops.powersgd import (as_stateful_compressor,
                                             is_stateful_compressor,
                                             state_from_plain, state_to_plain)
+from horovod_tpu_torch.timeline import span
 from horovod_tpu_torch.utils.tree import leaves, tree_map
 
 
@@ -186,15 +187,16 @@ class DistributedOptimizer:
         """All-reduce every ``.grad`` now, in place (once per update)."""
         if self._synchronized:
             return
-        if self.stateful:
-            self._stateful_reduce()
-        elif not self.local:
-            allreduce_gradients(
-                [p.grad for p in _params_with_grad(self)], op=self.op,
-                compression=self.compression,
-                fusion_threshold_bytes=self.fusion_threshold_bytes,
-                sparse=self.is_sparse, sparse_ratio=self.sparse_ratio,
-                process_set=self.process_set)
+        with span("hvd.reduce"):
+            if self.stateful:
+                self._stateful_reduce()
+            elif not self.local:
+                allreduce_gradients(
+                    [p.grad for p in _params_with_grad(self)], op=self.op,
+                    compression=self.compression,
+                    fusion_threshold_bytes=self.fusion_threshold_bytes,
+                    sparse=self.is_sparse, sparse_ratio=self.sparse_ratio,
+                    process_set=self.process_set)
         self._synchronized = True
 
     @torch.no_grad()
@@ -219,7 +221,8 @@ class DistributedOptimizer:
         if self._passes < self.backward_passes_per_step:
             return None
         self.synchronize()
-        out = self.optimizer.step(closure)
+        with span("hvd.update"):
+            out = self.optimizer.step(closure)
         self._passes = 0
         self._synchronized = False
         return out
@@ -276,6 +279,8 @@ def make_train_step(
     backward, ``synchronize()``, ``clip_grad_norm_(max_grad_norm)`` when
     given, ``step()`` and ``zero_grad()``, and returns the updated params
     (in place), the optimizer state and the loss averaged over the world.
+    The forward, the backward and the clip are the ``hvd.forward``,
+    ``hvd.backward`` and ``hvd.clip`` spans (:func:`..timeline.span`).
 
     Where the JAX step takes a rank-major batch and shards it over the mesh,
     each process here passes its own rows.  Under
@@ -286,15 +291,18 @@ def make_train_step(
     ``synchronize()`` is synchronized before the clip."""
 
     def step(params, batch) -> TrainStepResult:
-        loss = loss_fn(params, batch)
-        loss.backward()
+        with span("hvd.forward"):
+            loss = loss_fn(params, batch)
+        with span("hvd.backward"):
+            loss.backward()
         updating = not getattr(optimizer, "accumulating", False)
         if updating and max_grad_norm is not None:
             synchronize = getattr(optimizer, "synchronize", None)
             if synchronize is not None:
                 synchronize()
-            torch.nn.utils.clip_grad_norm_(_params_with_grad(optimizer),
-                                           max_grad_norm)
+            with span("hvd.clip"):
+                torch.nn.utils.clip_grad_norm_(_params_with_grad(optimizer),
+                                               max_grad_norm)
         if updating or isinstance(optimizer, DistributedOptimizer):
             optimizer.step()    # the synchronous wrapper counts the pass
         if updating:

@@ -33,6 +33,7 @@ from horovod_tpu_torch.ops import eager
 from horovod_tpu_torch.ops.collective_ops import Adasum, Average, Sum
 from horovod_tpu_torch.ops.compression import Compression, TopKCompressor
 from horovod_tpu_torch.ops.powersgd import ErrorFeedback
+from horovod_tpu_torch.timeline import span
 
 
 class EagerDistributedOptimizer:
@@ -106,28 +107,33 @@ class EagerDistributedOptimizer:
 
     def _hook(self, name: str):
         def hook(p: torch.Tensor) -> None:
-            if self._delay[name] <= 0:
-                raise RuntimeError(
-                    f"Gradients of {name} were computed more than "
-                    "backward_passes_per_step times before step(); "
-                    "increase backward_passes_per_step to accumulate them "
-                    "locally")
-            self._delay[name] -= 1
-            # A backward after synchronize(): the next synchronize() drains
-            # again, so step() never updates on an unreduced gradient.
-            self._synchronized = False
-            if self._delay[name] == 0 and not self.local:
-                try:
-                    h = self._enqueue(name, p.grad)
-                except BaseException:
-                    # The engine failed mid-backward (HorovodInternalError
-                    # for elastic.run): drop the update in flight, as a
-                    # failed synchronize() does, so that a replayed
-                    # backward starts from a clean count.
-                    self._discard()
-                    raise
-                self._handles[name] = (p, h)
+            with span("hvd.hook", tensor=name):
+                self._hooked(name, p)
         return hook
+
+    def _hooked(self, name: str, p: torch.Tensor) -> None:
+        """The hook's body: count the pass, enqueue on the last one."""
+        if self._delay[name] <= 0:
+            raise RuntimeError(
+                f"Gradients of {name} were computed more than "
+                "backward_passes_per_step times before step(); "
+                "increase backward_passes_per_step to accumulate them "
+                "locally")
+        self._delay[name] -= 1
+        # A backward after synchronize(): the next synchronize() drains
+        # again, so step() never updates on an unreduced gradient.
+        self._synchronized = False
+        if self._delay[name] == 0 and not self.local:
+            try:
+                h = self._enqueue(name, p.grad)
+            except BaseException:
+                # The engine failed mid-backward (HorovodInternalError
+                # for elastic.run): drop the update in flight, as a
+                # failed synchronize() does, so that a replayed
+                # backward starts from a clean count.
+                self._discard()
+                raise
+            self._handles[name] = (p, h)
 
     def _enqueue(self, name: str, grad: torch.Tensor) -> int:
         tname = "grad." + name
@@ -199,6 +205,12 @@ class EagerDistributedOptimizer:
         if self.local:
             self._reset()
             return
+        with span("hvd.reduce"):
+            self._drain()
+
+    def _drain(self) -> None:
+        """Enqueue what the hooks did not, wait for every handle and copy
+        the outputs in."""
         for name, p in self._named:
             if p.requires_grad and name not in self._handles:
                 if p.grad is None:
@@ -261,7 +273,8 @@ class EagerDistributedOptimizer:
 
     def _step(self, closure):
         self.synchronize()
-        out = self.optimizer.step(closure)
+        with span("hvd.update"):
+            out = self.optimizer.step(closure)
         self._synchronized = False
         return out
 

@@ -23,15 +23,25 @@ admit/recycle instants, one async span a request, and, with profiling on,
 each tick's ``phase/*`` spans back-dated to the profiler's own clock reads
 (:meth:`Timeline.async_span`).
 
+The training step writes its phases through :func:`span`: one range in
+``torch.profiler`` and one B/E pair on the timeline's ``hvd.step`` track
+(``hvd.forward``, ``hvd.backward``, ``hvd.reduce``, ``hvd.bucket``,
+``hvd.clip``, ``hvd.update``, ``hvd.hook``); the engine's ``hvd.dispatch``
+goes to the profiler alone, its timeline events being the reference's.
+
 The card's own detail belongs to ``torch.profiler``: ``start_timeline(...,
-profiler_dir=...)`` records one over the timeline's window and
-``stop_timeline`` writes its Chrome trace into that directory;
-:func:`trace_annotation` (``torch.profiler.record_function``) names a
-phase in that trace, so that the two can be lined up.
+profiler_dir=...)`` records one over the timeline's window, every thread
+of the process included (the engine's cycle thread dispatches there), and
+``stop_timeline`` writes its Chrome trace into that directory.  The two
+share a clock: every ``ts`` here is microseconds of the Unix epoch, the
+clock ``torch.profiler`` stamps, so an event at ``ts`` here lines up with
+the torch trace's events at ``ts + baseTimeNanoseconds / 1e3`` (its
+``ts`` are written relative to that base).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -39,6 +49,8 @@ import time
 from typing import TextIO
 
 import torch
+
+from horovod_tpu_torch import basics
 
 NEGOTIATE = "NEGOTIATE"
 DISPATCH = "DISPATCH"
@@ -55,15 +67,23 @@ class Timeline:
         self.mark_cycles = mark_cycles
         self._file: TextIO = open(path, "w")
         self._file.write("[\n")
-        self._start = time.perf_counter()
+        # One reading of both clocks: stamps are perf_counter differences
+        # from here, written as microseconds of the epoch.
+        t0_ns, epoch_ns = time.perf_counter_ns(), time.time_ns()
+        self._t0 = t0_ns / 1e9
+        self._epoch_us = epoch_ns / 1e3
         self._pids: dict[str, int] = {}
         self._next_pid = 1
         self._buffer: list[str] = []
         self._last_flush = time.monotonic()
         self._closed = False
 
+    def _at_us(self, t: float) -> float:
+        """``time.perf_counter()`` reading ``t`` as epoch microseconds."""
+        return self._epoch_us + (t - self._t0) * 1e6
+
     def _ts_us(self) -> float:
-        return (time.perf_counter() - self._start) * 1e6
+        return self._at_us(time.perf_counter())
 
     def _pid(self, tensor_name: str) -> int:
         pid = self._pids.get(tensor_name)
@@ -143,7 +163,7 @@ class Timeline:
             pid = self._pid(tensor_name)
             for ph, t in (("b", t0), ("e", t1)):
                 self._emit({"name": activity, "ph": ph, "cat": activity,
-                            "id": aid, "ts": (t - self._start) * 1e6,
+                            "id": aid, "ts": self._at_us(t),
                             "pid": pid, "tid": 0})
 
     def close(self) -> None:
@@ -160,10 +180,55 @@ class Timeline:
             self._file.close()
 
 
-def trace_annotation(name: str):
-    """Name an engine phase in ``torch.profiler``'s trace, so that the
-    Chrome timeline and the card's profile line up."""
-    return torch.profiler.record_function(name)
+STEP_TRACK = "hvd.step"
+_OFF = contextlib.nullcontext()
+# The profiler range that ``record_function`` opens, without its Python
+# object and its two dispatcher calls (~2 µs a range under a profiler
+# against ~15 µs): ResNet-50's 161 hooks a step run it on autograd's thread.
+_range = torch._C._profiler._RecordFunctionFast
+
+
+class _Span:
+    __slots__ = ("name", "args", "tl", "rf")
+
+    def __init__(self, name: str, args: dict, tl: Timeline | None,
+                 profiling: bool):
+        self.name, self.args, self.tl = name, args, tl
+        self.rf = _range(name) if profiling else None
+
+    def __enter__(self):
+        if self.rf is not None:
+            self.rf.__enter__()
+        if self.tl is not None:
+            self.tl.start(STEP_TRACK, self.name, self.args)
+
+    def __exit__(self, *exc):
+        if self.tl is not None:
+            self.tl.end(STEP_TRACK, self.name)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str, *, timeline: bool = True, **args):
+    """A named phase of the training step, as a context manager: a
+    ``torch.profiler`` range named ``name`` where a profiler records (the
+    range ``record_function(name)`` opens), and a B/E pair with ``args``
+    on the active timeline's
+    ``hvd.step`` track (``timeline=False`` leaves the timeline out).
+    With neither on, nothing is constructed: a shared null context.
+
+    A profiler records this thread when its thread-local state says so
+    (the caller, and autograd's threads, which inherit it); a profiler
+    started with ``profile_all_threads`` records threads that hold no such
+    state too (the engine's cycle thread), which only torch's module-level
+    flag tells."""
+    tl = basics._state.timeline if timeline else None
+    profiling = (torch.autograd._profiler_enabled()
+                 or torch.autograd.profiler._is_profiler_enabled)
+    if tl is None and not profiling:
+        return _OFF
+    return _Span(name, args, tl, profiling)
 
 
 def maybe_create(path: str | None,
@@ -171,8 +236,6 @@ def maybe_create(path: str | None,
     """A timeline if one is configured: on rank 0 only (reference
     operations.cc:1614-1618), unless ``path`` holds ``{rank}``, in which
     case every rank writes its own file."""
-    from horovod_tpu_torch import basics
-
     if not path:
         return None
     if "{rank}" in path:
@@ -186,12 +249,15 @@ def maybe_create(path: str | None,
 
 
 def _start_profiler(device: torch.device | None):
-    """A running ``torch.profiler.profile`` of the host and, on the card,
-    of CUDA kernels."""
+    """A running ``torch.profiler.profile`` of the host, every thread of
+    it, and, on the card, of CUDA kernels."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device is not None and device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=activities)
+    prof = torch.profiler.profile(
+        activities=activities,
+        experimental_config=torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True))
     prof.start()
     return prof
 
@@ -203,13 +269,11 @@ def start_timeline(path: str, mark_cycles: bool = False,
     Rank 0 only unless ``path`` holds ``{rank}``; raises if a timeline is
     already active.
 
-    ``profiler_dir`` also records a ``torch.profiler`` trace (the host
-    and, on the card, its kernels) for the same window; ``stop_timeline``
+    ``profiler_dir`` also records a ``torch.profiler`` trace (the host,
+    every thread, and, on the card, its kernels) for the same window; ``stop_timeline``
     writes it to ``<profiler_dir>/trace_rank<r>.json``.  A profiler that
     fails to start (one already running, say) closes the new timeline and
     raises."""
-    from horovod_tpu_torch import basics
-
     st = basics._require_init()
     with st.lock:
         if st.timeline is not None:
@@ -235,8 +299,6 @@ def start_timeline(path: str, mark_cycles: bool = False,
 def stop_timeline() -> None:
     """Stop the active timeline and finish its file (``hvd.stop_timeline``).
     Idempotent when none is active."""
-    from horovod_tpu_torch import basics
-
     st = basics._require_init()
     with st.lock:
         tl, st.timeline = st.timeline, None

@@ -1,0 +1,16 @@
+"""``optimizer_ms.tokens``: device milliseconds per step of the kernels
+launched inside the port's ``hvd.update`` span: the wrapped optimizer's
+``step()`` alone (AdamW), without the reduction before it. The summary's
+``ranges`` summed over the traced steps, the mean over ranks (the
+arithmetic of ``update_ms.tokens``); nothing where no trace holds the
+range."""
+
+RANGES = ("hvd.update",)
+
+
+def read(run):
+    per_rank = [t["ranges"].get(RANGES[0], []) for t in run.traces]
+    if not any(per_rank):
+        return None
+    return (sum(sum(r) for r in per_rank) / len(per_rank)
+            / run.trace_steps / 1e3)
