@@ -160,6 +160,12 @@ Phases, one JSON line each; any failure exits non-zero before the result:
    tails, and the draft model's prefill shape (B=4, L=1024, 32/8 heads,
    causal), each held against its plain version; at the ViT shape and the
    draft shape the times, bounds, ``prev_ms`` and SDPA.
+   ``kernel batch_norm`` (after ``kernel d64``): the fused batch-norm
+   kernels at ResNet-50's 53 batch-256 norms against their plain
+   arithmetic (y, the statistics and running statistics, dx, dγ, dβ and
+   d_residual, at the card tests' tolerances), and their device time a
+   step against the bytes bound, ATen's ``F.batch_norm`` and the unfused
+   chain.
 9. ``train resnet101`` (``bench.py _bench_resnet``): ResNet-101 at full
    depth, batch 64 at 224 × 224 from ``synthetic_imagenet``, bf16 compute
    with f32 parameters and BN, ``SGD(0.01, momentum=0.9)`` through
@@ -167,7 +173,8 @@ Phases, one JSON line each; any failure exits non-zero before the result:
    ``DistributedOptimizer`` and ``make_train_step``: two warm-up steps,
    eight timed, one profiled; images/s and the model-FLOP share (FLOP from
    ``torch.utils.flop_counter``); losses finite and falling, BN running
-   statistics moved.
+   statistics moved, each norm one launch of each fused batch-norm kernel
+   a step.
 10. ``train vit_b16`` (``bench.py _bench_vit`` with the flash kernels):
     ViT-B/16, bf16, ``attn_impl="flash"``, batch 64 at 224,
     ``AdamW(1e-3, weight_decay=1e-4)``, the same wrapper; each step must
@@ -180,7 +187,8 @@ Phases, one JSON line each; any failure exits non-zero before the result:
     profiled idle share and the route's kernels' ms of each).
 11. ``train vgg16`` (BASELINE config 4, with its fusion buckets and
     allreduce bytes per step) and ``train inception_v3`` (299 × 299): batch
-    64, one warm-up and two timed steps each.
+    64, one warm-up and two timed steps each; Inception's norms each one
+    launch of each fused batch-norm kernel a step.
 12. ``train compressed`` (the synthetic benchmark twin's model): ResNet-50
     at full width, batch 32 at 224, bf16 compute with f32 parameters,
     ``SGD(0.01, momentum=0.9)``, NCCL with a world of one, through each
@@ -274,8 +282,8 @@ Phases, one JSON line each; any failure exits non-zero before the result:
     a ``load_model`` round trip; else the phase prints its skip.
 
 The training phases share one process group, shut down after the last.
-Then a ``{"kernels": [...]}`` line (each kernel at head dims 128 and 64)
-and, last, the result line ``{"ok": true, "device": {...}}``.  A failed
+Then a ``{"kernels": [...]}`` line (each flash kernel at head dims 128 and
+64, and the fused batch-norm kernels) and, last, the result line ``{"ok": true, "device": {...}}``.  A failed
 phase prints its JSON line with ``"ok": false`` and its traceback on
 standard error, and the run exits 1.
 ``--n-layers`` and ``--train-layers`` cut depth, never width; the vision
@@ -952,6 +960,204 @@ def phase_kernel_d64(seed: int) -> dict:
             raise PhaseError(f"the D = 64 kernels disagree with their plain "
                              f"versions on {name} {tname}")
     return {"fwd": fwd_rows, "bwd": bwd_rows}
+
+
+# The batch-norm kernels against their plain arithmetic in bf16, as the
+# card tests hold them (tests/test_torch_batch_norm_act.py): y and dx one
+# bf16 rounding apart (rtol 2^-7; dx's atol scaled by its largest
+# magnitude), the statistics and running statistics to f32 sums' last
+# bits, dγ and dβ to 1e-4 of their largest.
+BN_Y_ATOL, BN_Y_RTOL = 1e-3, 2 ** -7
+BN_STATS_ATOL, BN_STATS_RTOL = 1e-6, 2e-5
+BN_DPARAM_ATOL, BN_DPARAM_RTOL = 1e-4, 1e-4
+BN_COUNTERS = ("stats_launches", "apply_launches", "bwd_reduce_launches",
+               "bwd_elemt_launches")
+
+
+def _max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def _excess(got, want, rtol: float) -> float:
+    """The largest |got − want| − rtol·|want|: at most the atol where the
+    two agree."""
+    want = want.float()
+    return float(((got.float() - want).abs() - rtol * want.abs()).max())
+
+
+def _bn_launches_reset() -> None:
+    from horovod_tpu_torch.ops import batch_norm as bn
+
+    for k in BN_COUNTERS:
+        setattr(bn, k, 0)
+
+
+def _bn_launches(model, steps: int) -> dict:
+    """The fused batch-norm kernels' launches since
+    :func:`_bn_launches_reset`, and whether each of ``model``'s norms
+    launched each kernel once a step (every norm of the vision models runs
+    in train mode with local statistics)."""
+    from horovod_tpu_torch.models.layers import BatchNorm
+    from horovod_tpu_torch.ops import batch_norm as bn
+
+    norms = sum(isinstance(m, BatchNorm) for m in model.modules())
+    got = {k: getattr(bn, k) for k in BN_COUNTERS}
+    return {"bn_norms": norms, "bn_launches": got,
+            "checks": {"bn_kernels_every_norm": all(
+                v == norms * steps for v in got.values())}}
+
+
+def resnet50_norms(batch: int = 256) -> list[tuple]:
+    """ResNet-50's 53 train-mode batch norms at ``batch`` (224² input) as
+    (N, C, H, W, relu, residual, count): the stem, each block's three
+    (the first at the block's input size; the last with the residual add)
+    and the downsample path's, equal shapes merged."""
+    seen: dict[tuple, int] = {}
+
+    def add(c, h, relu, residual):
+        key = (batch, c, h, h, relu, residual)
+        seen[key] = seen.get(key, 0) + 1
+
+    add(64, 112, True, False)
+    size = 56
+    for i, blocks in enumerate((3, 4, 6, 3)):
+        f = 64 * 2 ** i
+        for j in range(blocks):
+            first = j == 0
+            h_in, h = (size, size // 2) if first and i > 0 else (size, size)
+            add(f, h_in, True, False)
+            add(f, h, True, False)
+            add(4 * f, h, True, True)
+            if first:
+                add(4 * f, h, False, False)
+            size = h
+    return [(*key, n) for key, n in seen.items()]
+
+
+def phase_kernel_batch_norm(seed: int) -> dict:
+    """The fused batch-norm kernels (``csrc/batch_norm.cu``) at ResNet-50's
+    batch-256 shapes in bf16: each case's largest error against the plain
+    arithmetic (``_forward_reference``, ``_backward_reference``), and, summed
+    over the 53 norms of a step, device ms of the kernels (forward: the
+    statistics and apply kernels; backward: reduce and element-wise), of the
+    plain arithmetic, of ATen's ``F.batch_norm`` forward and backward
+    (``library_ms``: the yardstick; the port never calls it on this path)
+    and of the chain the model ran before (``F.batch_norm`` with the
+    running-variance fold, the add and the ReLU, forward and backward);
+    the bytes bound (each input read once, each output written once), the
+    bytes the kernels move (x read twice forward; dy, x and the mask's y
+    twice backward), and the wrapper's host µs a call."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import batch_norm as bn
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 20)
+    cl = torch.channels_last
+    total = {k: 0.0 for k in ("kernel_fwd_ms", "kernel_bwd_ms",
+                              "plain_fwd_ms", "plain_bwd_ms", "library_ms",
+                              "chain_ms", "bound_ms", "moved_gb",
+                              "host_fwd_us", "host_bwd_us")}
+    rows = []
+    for n, c, h, w, relu, res, count in resnet50_norms():
+        shape = (n, c, h, w)
+        x = (1 + torch.randn(shape, generator=gen, device=DEV)).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        r = (torch.randn(shape, generator=gen, device=DEV).to(
+            torch.bfloat16).contiguous(memory_format=cl) if res else None)
+        dy = torch.randn(shape, generator=gen, device=DEV).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        wt = 1 + 0.1 * torch.randn(c, generator=gen, device=DEV)
+        bs = 0.1 * torch.randn(c, generator=gen, device=DEV)
+        rm, rv = torch.zeros(c, device=DEV), torch.ones(c, device=DEV)
+        args = (wt, bs, r, rm, rv, 0.9, 1e-5, relu)
+        got_rm, got_rv, want_rm, want_rv = rm.clone(), rv.clone(), \
+            rm.clone(), rv.clone()
+        y, stats = bn._forward_cuda(x, wt, bs, r, got_rm, got_rv, 0.9, 1e-5,
+                                    relu)
+        y_ref, stats_ref = bn._forward_reference(x, wt, bs, r, want_rm,
+                                                 want_rv, 0.9, 1e-5, relu)
+        got = bn._backward_cuda(dy, x, y_ref, wt, stats_ref, relu, res)
+        want = bn._backward_reference(dy, x, y_ref, wt, stats_ref, relu, res)
+        sync()
+        row = {"shape": list(shape), "relu": relu, "residual": res,
+               "count": count,
+               "y_max_abs_err": _max_err(y, y_ref),
+               "y_excess": _excess(y, y_ref, BN_Y_RTOL),
+               "stats_excess": _excess(stats, stats_ref, BN_STATS_RTOL),
+               "running_excess": max(
+                   _excess(got_rm, want_rm, BN_STATS_RTOL),
+                   _excess(got_rv, want_rv, BN_STATS_RTOL)),
+               "dx_max_abs_err": _max_err(got[0], want[0]),
+               "dx_excess": _excess(got[0], want[0], BN_Y_RTOL),
+               "dx_max_abs": float(want[0].float().abs().max()),
+               "dparam_excess": max(_excess(g, w, BN_DPARAM_RTOL)
+                                    - BN_DPARAM_RTOL * float(w.abs().max())
+                                    for g, w in zip(got[1:3], want[1:3])),
+               "dres_equal": (torch.equal(got[3], want[3]) if res
+                              else got[3] is None)}
+        row["ok"] = (bool(torch.isfinite(y.float()).all())
+                     and row["y_excess"] <= BN_Y_ATOL
+                     and row["stats_excess"] <= BN_STATS_ATOL
+                     and row["running_excess"] <= BN_STATS_ATOL
+                     and row["dx_excess"] <= BN_Y_ATOL * row["dx_max_abs"]
+                     and row["dparam_excess"] <= BN_DPARAM_ATOL
+                     and row["dres_equal"])
+        if not row["ok"]:
+            emit("kernel batch_norm", **row)
+            raise PhaseError(f"the batch-norm kernels disagree with their "
+                             f"plain arithmetic at {shape}")
+        xg = x.detach().requires_grad_()
+        wg, bg = wt.clone().requires_grad_(), bs.clone().requires_grad_()
+
+        def library():
+            out = F.batch_norm(xg, rm, rv, wg, bg, True, 0.1, 1e-5)
+            torch.autograd.grad(out, (xg, wg, bg), dy)
+
+        rg = None if r is None else r.detach().requires_grad_()
+
+        def chain():
+            out = bn.batch_norm_act_plain(xg, wg, bg, rm, rv, momentum=0.9,
+                                          eps=1e-5, relu=relu, residual=rg)
+            torch.autograd.grad(out, [t for t in (xg, wg, bg, rg)
+                                      if t is not None], dy)
+
+        elem = x.numel()
+        reads = 1 + (1 if res else 0)
+        bound = 2 * elem * (reads + 1)                       # forward
+        bound += 2 * elem * (2 + (1 if relu else 0) + 1
+                             + (1 if res and relu else 0))   # backward
+        moved = 2 * elem * (reads + 2)
+        moved += 2 * elem * (2 * (2 + (1 if relu else 0)) + 1
+                             + (1 if res and relu else 0))
+        times = {
+            "kernel_fwd_ms": device_ms(lambda: bn._forward_cuda(x, *args))[0],
+            "kernel_bwd_ms": device_ms(lambda: bn._backward_cuda(
+                dy, x, y, wt, stats, relu, res))[0],
+            "plain_fwd_ms": device_ms(
+                lambda: bn._forward_reference(x, *args), n=5)[0],
+            "plain_bwd_ms": device_ms(lambda: bn._backward_reference(
+                dy, x, y, wt, stats, relu, res), n=5)[0],
+            "library_ms": device_ms(library)[0],
+            "chain_ms": device_ms(chain)[0],
+            "host_fwd_us": host_us(lambda: bn._forward_cuda(x, *args)),
+            "host_bwd_us": host_us(lambda: bn._backward_cuda(
+                dy, x, y, wt, stats, relu, res))}
+        row.update(times, bound_ms=bound / PEAK_BYTES * 1e3,
+                   moved_gb=moved / 1e9)
+        row["kernel_tb_per_s"] = moved / 1e9 / (
+            times["kernel_fwd_ms"] + times["kernel_bwd_ms"])
+        for k in total:
+            total[k] += row[k] * count
+        rows.append(row)
+        emit("kernel batch_norm", **row)
+        del x, r, dy, y, y_ref, got, want, xg, rg
+    total["kernel_ms"] = total["kernel_fwd_ms"] + total["kernel_bwd_ms"]
+    total["kernel_tb_per_s"] = total["moved_gb"] / total["kernel_ms"]
+    total["bound_pct"] = 100 * total["bound_ms"] / total["kernel_ms"]
+    out = {"norms": sum(r["count"] for r in rows), "per_step": total}
+    emit("kernel batch_norm step", **out)
+    return {**out, "cases": rows}
 
 
 def _model(n_layers: int, seed: int):
@@ -2717,7 +2923,8 @@ def _vision_train(name: str, model, opt, batch, *, warmup: int, timed: int,
 
 def phase_resnet101(seed: int) -> dict:
     """``bench.py _bench_resnet``: ResNet-101, batch 64 at 224 × 224, bf16
-    compute with f32 parameters and BN, ``SGD(0.01, momentum=0.9)``."""
+    compute with f32 parameters and BN, ``SGD(0.01, momentum=0.9)``; every
+    norm through the fused batch-norm kernels, counted."""
     import torch
 
     from horovod_tpu_torch import basics
@@ -2735,9 +2942,12 @@ def phase_resnet101(seed: int) -> dict:
     def stats_moved(step, run):
         moved = [m.running_mean for m in model.modules()
                  if hasattr(m, "running_mean")]
-        return {"checks": {"bn_stats_moved": all(
-            not torch.equal(a, b) for a, b in zip(stats, moved))}}
+        late = _bn_launches(model, len(run["losses"]))
+        late["checks"]["bn_stats_moved"] = all(
+            not torch.equal(a, b) for a, b in zip(stats, moved))
+        return late
 
+    _bn_launches_reset()
     out = _vision_train("train resnet101", model, opt, batch, warmup=2,
                         timed=8, profile=True, flops=flops, extra={},
                         after=stats_moved)
@@ -2931,7 +3141,8 @@ def phase_vgg16(seed: int) -> dict:
 
 def phase_inception_v3(seed: int) -> dict:
     """Inception V3, batch 64 at 299 × 299, bf16, ``SGD(0.01,
-    momentum=0.9)``."""
+    momentum=0.9)``; every norm through the fused batch-norm kernels,
+    counted."""
     import torch
 
     from horovod_tpu_torch import basics
@@ -2941,9 +3152,12 @@ def phase_inception_v3(seed: int) -> dict:
     torch.backends.cudnn.benchmark = True
     model = InceptionV3(dtype=torch.bfloat16, device=DEV, seed=seed)
     opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    _bn_launches_reset()
     out = _vision_train("train inception_v3", model, opt,
                         _vision_batch(seed + 8, 299), warmup=1, timed=2,
-                        profile=False, flops=None, extra={"image_size": 299})
+                        profile=False, flops=None, extra={"image_size": 299},
+                        after=lambda step, run: _bn_launches(
+                            model, len(run["losses"])))
     return out
 
 
@@ -5233,6 +5447,8 @@ def main(argv=None) -> int:
         kern_bwd = phase_kernel_bwd(args.seed)
         phase = "kernel d64"
         kern64 = phase_kernel_d64(args.seed)
+        phase = "kernel batch_norm"
+        kern_bn = phase_kernel_batch_norm(args.seed)
         phase = "serve generate"
         if args.n_layers != 32:
             emit("depth cut", path="serve", n_layers=args.n_layers, of=32)
@@ -5279,7 +5495,7 @@ def main(argv=None) -> int:
         phase_pipeline_moe(args.seed)
         torch.cuda.empty_cache()
         phase = "train resnet101"
-        phase_resnet101(args.seed)
+        r101 = phase_resnet101(args.seed)
         phase = "train vit_b16"
         vit = phase_vit_b16(args.seed, tuple(args.vit_ab))
         phase = "train eager"
@@ -5291,7 +5507,7 @@ def main(argv=None) -> int:
         phase = "train vgg16"
         phase_vgg16(args.seed)
         phase = "train inception_v3"
-        phase_inception_v3(args.seed)
+        inception = phase_inception_v3(args.seed)
         phase = "train compressed"
         phase_train_compressed(args.seed)
         phase = "fit mnist"
@@ -5313,7 +5529,8 @@ def main(argv=None) -> int:
                                               spec, train, kern64, vit,
                                               eager, router, elastic,
                                               thr, (seqpar, sharded), tp,
-                                              examples)}),
+                                              examples,
+                                              (kern_bn, r101, inception))}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
@@ -5334,7 +5551,7 @@ def _ptx(build, kernel: str) -> dict:
 
 def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
                  vit, eager, router, elastic, thr, sharded, tp,
-                 examples) -> list[dict]:
+                 examples, batch_norm) -> list[dict]:
     """One row per kernel and head dim: its launches on the main paths
     (D = 128: serving's generate, the ``llama_generate`` twin's prefills,
     batcher and the router's fleet,
@@ -5349,7 +5566,10 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
     D = 64).  ``ms`` is device time; ``prev_ms`` the earlier mma.sync kernel
     (same run, same inputs); with the build's registers, spills and ptxas
     warnings and the Hopper kernels' shared memory a block.  The forward's
-    row adds the same times at the training shape."""
+    row adds the same times at the training shape.  The last row is the
+    fused batch-norm kernels': their launches in ``train resnet101`` and
+    ``train inception_v3``, and their device ms a ResNet-50 batch-256 step
+    (``kernel batch_norm``)."""
     from horovod_tpu_torch.parallel import flash_attention as fa
 
     fwd = kern["cases"][0]
@@ -5456,7 +5676,42 @@ def _kernel_rows(build, kern, kern_bwd, gen, bat, spec, train, kern64,
                 "shape": DRAFT_PREFILL_SHAPE[0],
                 **{k: draft[k] for k in keys + ("library_ms",)}}
         rows.append(row)
+    rows.append(_batch_norm_row(build, *batch_norm))
     return rows
+
+
+def _batch_norm_row(build, kern_bn, *runs) -> dict:
+    """The fused batch-norm kernels (statistics, apply, backward reduce and
+    element-wise) as one row: launches of each on the main paths, the
+    largest errors against their plain arithmetic, and device ms a
+    ResNet-50 batch-256 step (forward and backward pairs) against the bytes
+    bound, the plain arithmetic, ATen's ``F.batch_norm`` and the chain the
+    model ran before; the build's registers and spills of each kernel."""
+    t = kern_bn["per_step"]
+    return {
+        "name": "batch_norm", "route": "cuda",
+        "design": "cuda C++ 16-byte vectors, last-block merge",
+        "source": "horovod_tpu_torch/csrc/batch_norm.cu",
+        "replaces": None,       # XLA fuses flax's BatchNorm: no TPU kernel
+        "launches": sum(r["bn_launches"]["stats_launches"] for r in runs),
+        "launches_by_kernel": {k: sum(r["bn_launches"][k] for r in runs)
+                               for k in BN_COUNTERS},
+        "max_abs_err": {k: max(c[k] for c in kern_bn["cases"])
+                        for k in ("y_max_abs_err", "dx_max_abs_err")},
+        "shape": f"resnet50_b256_{kern_bn['norms']}_norms",
+        "ms": t["kernel_ms"], "fwd_ms": t["kernel_fwd_ms"],
+        "bwd_ms": t["kernel_bwd_ms"],
+        "host_us_per_call": (t["host_fwd_us"] + t["host_bwd_us"])
+                            / kern_bn["norms"],
+        "plain_ms": t["plain_fwd_ms"] + t["plain_bwd_ms"],
+        "library_ms": t["library_ms"], "chain_ms": t["chain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": "bytes",
+        "tb_per_s": t["kernel_tb_per_s"],
+        "share_of_bound": t["bound_pct"] / 100,
+        "ptxas": {k: _ptx(build, k) for k in (
+            "bn_stats_kernel", "bn_apply_kernel", "bn_bwd_reduce_kernel",
+            "bn_bwd_elemt_kernel")},
+    }
 
 
 if __name__ == "__main__":

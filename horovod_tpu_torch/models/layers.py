@@ -10,9 +10,11 @@ where torch's defaults differ:
   ``[(lo, hi), (lo, hi)]`` as given.  Bias on by default, as flax's.
 * :class:`BatchNorm`: flax's ``momentum`` is the weight of the old running
   value (0.9 is torch's ``momentum=0.1``), and flax folds the *biased* batch
-  variance into ``running_var`` where torch folds the unbiased one.  The
-  normalisation itself is one ``F.batch_norm`` (cuDNN on the card), its
-  batch statistics in f32 whatever the input dtype, as flax computes them.
+  variance into ``running_var`` where torch folds the unbiased one.  Its
+  batch statistics are f32 whatever the input dtype, as flax computes them.
+  In train mode with local statistics it is :func:`..ops.batch_norm.
+  batch_norm_act` (``F.batch_norm`` on the CPU, the port's fused kernels on
+  the card), with the model's ReLU and residual add after it fused in.
   With ``axis_name`` set and a world larger than one, the batch statistics
   are averaged over the world (cross-replica BN), differentiably.
 * :class:`Dense`, :class:`LayerNorm` (epsilon 1e-6, statistics and affine
@@ -39,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from horovod_tpu_torch._device import resolve_device
+from horovod_tpu_torch.ops.batch_norm import batch_norm_act
 
 # flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal"),
 # whose standard deviation is corrected for the truncation at ±2σ.
@@ -129,29 +132,28 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = True, *,
+                relu: bool = False,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        """``relu`` and ``residual`` are the model's own graph: the output is
+        ``relu(BN(x) + residual)``, fused into the normalisation where the
+        statistics are local and the mode is train."""
+        cross = (self.axis_name is not None and dist.is_initialized()
+                 and dist.get_world_size() > 1)
+        if train and not cross:
+            return batch_norm_act(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, momentum=self.momentum, eps=self.epsilon,
+                relu=relu, residual=residual).to(self.dtype)
         if not train:
             y = F.batch_norm(x, self.running_mean, self.running_var,
                              self.weight, self.bias, False, 0.0, self.epsilon)
-        elif (self.axis_name is not None and dist.is_initialized()
-              and dist.get_world_size() > 1):
-            y = self._cross_replica(x)
         else:
-            y = self._local(x)
-        return y.to(self.dtype)
-
-    def _local(self, x: torch.Tensor) -> torch.Tensor:
-        # torch folds var·n/(n-1) into running_var with weight 1 - momentum;
-        # flax folds var itself: scale the new share back by (n-1)/n.  The
-        # op updates a copy, which autograd keeps unchanged.
-        n, m = x.numel() // x.shape[1], self.momentum
-        folded = self.running_var.clone()
-        y = F.batch_norm(x, self.running_mean, folded, self.weight,
-                         self.bias, True, 1.0 - m, self.epsilon)
-        with torch.no_grad():
-            kept = self.running_var * m
-            self.running_var.copy_((folded - kept) * ((n - 1) / n) + kept)
-        return y
+            y = self._cross_replica(x)
+        y = y.to(self.dtype)
+        if residual is not None:
+            y = y + residual
+        return F.relu(y) if relu else y
 
     def _cross_replica(self, x: torch.Tensor) -> torch.Tensor:
         """Batch statistics averaged over the world (flax's ``pmean`` of

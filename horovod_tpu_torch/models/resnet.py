@@ -53,15 +53,14 @@ class BottleneckBlock(nn.Module):
             self.downsample_bn = norm(out)
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
-        y = x
-        for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
-            y = norm(conv(y), train)
-            if i < 2:
-                y = F.relu(y)
         residual = x
         if self.project:
             residual = self.downsample_bn(self.downsample_conv(x), train)
-        return F.relu(y + residual)
+        y = x
+        for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
+            y = norm(conv(y), train, relu=True,
+                     residual=residual if i == 2 else None)
+        return y
 
 
 class ResNet(nn.Module):
@@ -90,8 +89,8 @@ class ResNet(nn.Module):
         init_and_place(self, seed, device)
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
-        x = F.relu(self.bn_init(self.conv_init(nhwc_input(x, self.dtype)),
-                                train))
+        x = self.bn_init(self.conv_init(nhwc_input(x, self.dtype)), train,
+                         relu=True)
         x = F.max_pool2d(x, 3, 2, padding=1)
         for block in self.blocks:
             x = block(x, train)

@@ -2,10 +2,10 @@
 Hopper kernels' tiles, on the CPU.
 
 * Every launch entry of ``horovod_tpu_torch/csrc/*.cu`` (an ``extern "C"``
-  function that takes the stream) has a ``_SIGNATURES`` row with the same
-  number of pointers, and the seven ints and one float ``_kernel_lib``
-  declares after them: a mismatch would make ``ctypes`` cut or shift the
-  arguments on the card.
+  function that takes the stream) has a ``_SIGNATURES`` row in its
+  wrapper; the flash entries' rows have the same number of pointers, and
+  the seven ints and one float ``_kernel_lib`` declares after them: a
+  mismatch would make ``ctypes`` cut or shift the arguments on the card.
 * ``_flash_forward_cuda`` sends bf16/fp16 to the Hopper kernels,
   ``hvd_flash_fwd`` at head dim 128 and ``hvd_flash_fwd_d64`` at 64, and
   f32 to ``hvd_flash_fwd_mma``; the backward wrappers send bf16/fp16 to
@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from horovod_tpu_torch.ops import batch_norm as tbn
 from horovod_tpu_torch.parallel import flash_attention as tflash
 
 jflash = importlib.import_module("horovod_tpu.parallel.flash_attention")
@@ -57,6 +58,10 @@ def test_every_launch_entry_has_a_signature_row():
     found = set(_launch_entries())
     declared = {(lib, fn) for lib, fns in tflash._SIGNATURES.items()
                 for fn in fns}
+    # The batch-norm library's launch entries, whose rows
+    # tests/test_torch_batch_norm_act.py holds to the source.
+    declared |= {("batch_norm", fn) for fn in tbn._SIGNATURES
+                 if fn != "hvd_bn_workspace"}
     assert found == declared
 
 
